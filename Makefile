@@ -1,10 +1,8 @@
 # libdogleg_tpu build/verify contract — the analog of the reference's
 # Makefile check target (reference Makefile:30-32), extended with the
-# one-command evidence harness.
+# GPU smoke run.
 
-TAG ?=
-
-.PHONY: check test evidence evidence-full
+.PHONY: check test smoke
 
 check:
 	./check.sh
@@ -12,12 +10,6 @@ check:
 test:
 	python -m pytest tests/ -x -q
 
-# regenerate the quick-tier BENCH_* artifacts (<=10 min: headline +
-# kernels-lite + multichip dryrun) + the EVIDENCE manifest; pass
-# TAG=r05 to pin the round tag. `make evidence-full` runs the ~2.5 h
-# full matrix.
-evidence:
-	python evidence.py $(if $(TAG),--tag $(TAG))
-
-evidence-full:
-	python evidence.py --full $(if $(TAG),--tag $(TAG))
+# the main path on one GPU (exits non-zero without one)
+smoke:
+	python chip_smoke.py

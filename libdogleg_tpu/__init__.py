@@ -1,4 +1,4 @@
-"""libdogleg_tpu — a TPU-native nonlinear least-squares framework.
+"""libdogleg_tpu — a nonlinear least-squares framework for accelerators.
 
 A brand-new JAX/XLA/Pallas implementation of the problem class solved by
 dkogan/libdogleg (see /root/reference, reference README.pod:17-38): find the
@@ -6,9 +6,9 @@ vector p (Nstate) minimizing norm2(f(p)) given a user function producing the
 residual vector x (Nmeasurements) and its Jacobian J = dx/dp, via Powell's
 dog-leg trust-region algorithm.
 
-This is not a port: the architecture is TPU-first. Every operating-point
+This is not a port: the architecture is accelerator-first. Every operating-point
 evaluation is reduced once over the measurement axis into the products
-(norm2(x), J^T x, J^T J) — a single MXU-friendly contraction — after which the
+(norm2(x), J^T x, J^T J) — a single matrix contraction — after which the
 entire trust-region iteration is Nstate-sized math inside a jitted
 `lax.while_loop`. Solves are vmappable (batched independent problems) and
 shardable (measurement-axis row blocks with psum over a device mesh).

@@ -14,7 +14,7 @@ with the normalization scale k chosen so the outlier threshold is 1
 (dogleg.c:2281-2289) — including the reference's acknowledged ad-hoc k/8 hack
 (dogleg.c:2374-2378), preserved verbatim for behavioral parity.
 
-TPU-native differences: the reference computes pinv(J) rows in chunks of 4
+Differences from the reference: the reference computes pinv(J) rows in chunks of 4
 through CHOLMOD (dogleg.c:2427-2431); here all measurements are solved at
 once as one batched triangular solve, and the per-feature blocks are a single
 batched einsum. featureSize is unrestricted (the reference supports only 1
@@ -55,7 +55,7 @@ def pseudoinverse_rows(J: jnp.ndarray, L: jnp.ndarray,
     """pinv(J) = inv(JtJ) J^T for ALL measurements at once, given the lower
     Cholesky factor L of JtJ (+ lambda). The reference computes this in
     chunks of 4 through CHOLMOD/dpptrs (pseudoinverse_J_dense/sparse,
-    dogleg.c:1826-1921); on TPU it is one batched triangular solve.
+    dogleg.c:1826-1921); here it is one batched triangular solve.
     solve_fn overrides the dense factor: any rhs->solution map for JtJ
     (e.g. a block-sparse factor via
     `lambda r: sparse_cholesky.solve(sym, Lb, r)` — multi-RHS supported).

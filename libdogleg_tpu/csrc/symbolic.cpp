@@ -3,7 +3,7 @@
 // The structure-only (symbolic) phase of the block-sparse pipeline — block
 // pattern derivation from scalar CSR, and the sorted JtJ pair schedule — is
 // pointer-chasing graph work executed once per problem structure on the
-// host. It is the TPU-native counterpart of the reference's one-time
+// host. It is this library's counterpart of the reference's one-time
 // cholmod_analyze (reference dogleg.c:649-654), and like CHOLMOD's, it
 // belongs in native code: for large patterns (1e5+ block rows) the
 // pure-numpy fallback in sparsity.py is orders of magnitude slower.

@@ -89,47 +89,41 @@ def explain_result(result: SolveResult) -> str:
             f"lambda={float(result.lam):.3g}")
 
 
-def profile_op_summary(fn, *args, logdir: str = "/tmp/libdogleg_tpu_trace",
+def profile_op_summary(fn, *args, logdir: str = None,
                        top: int = 15) -> str:
-    """Profile one execution of fn(*args) with jax.profiler and return a
-    per-op device-time summary (the reference has no profiling at all,
-    SURVEY.md section 5.1; on TPU this is the tool that shows where a
-    solve's wall time actually goes — e.g. the while-loop body's fusions).
-
-    The result is forced to completion with a dependent host fetch, which
-    is required for a truthful trace on asynchronous remote backends."""
+    """Profile one warm execution of fn(*args) with jax.profiler and
+    return a per-op device-time summary of the GPU planes (the reference
+    has no profiling at all, SURVEY.md section 5.1). Each run ends with
+    block_until_ready, so the trace holds the whole execution. logdir
+    defaults to a fresh temporary directory."""
     import collections
     import glob
-    import gzip
-    import json
+    import tempfile
 
     import jax
+    from jax.profiler import ProfileData
 
-    from libdogleg_tpu.utils.benchtime import fetch
-
-    fetch(fn(*args))                      # compile outside the trace
+    logdir = logdir or tempfile.mkdtemp(prefix="libdogleg_trace_")
+    jax.block_until_ready(fn(*args))          # compile outside the trace
     with jax.profiler.trace(logdir):
-        fetch(fn(*args))
+        jax.block_until_ready(fn(*args))
 
-    files = sorted(glob.glob(f"{logdir}/**/*.trace.json.gz", recursive=True))
+    files = sorted(glob.glob(f"{logdir}/**/*.xplane.pb", recursive=True))
     if not files:
         return "no trace captured"
-    data = json.loads(gzip.open(files[-1]).read())
-    all_events = data.get("traceEvents", [])
-    events = [e for e in all_events
-              if e.get("ph") == "X" and e.get("dur")]
-    procs = {e["pid"]: str(e["args"].get("name"))
-             for e in all_events
-             if e.get("ph") == "M" and e.get("name") == "process_name"}
-    dev_pids = [p for p, nm in procs.items()
-                if "TPU" in nm or "GPU" in nm or "XLA" in nm]
+    planes = [pl for pl in ProfileData.from_file(files[-1]).planes
+              if pl.name.startswith("/device:GPU")]
+    if not planes:
+        return "no GPU device plane in the trace"
     agg = collections.defaultdict(float)
     cnt = collections.Counter()
-    for e in events:
-        if not dev_pids or e["pid"] in dev_pids:
-            agg[e["name"]] += e["dur"]
-            cnt[e["name"]] += 1
-    lines = [f"{'ms':>9}  {'calls':>6}  op"]
+    for pl in planes:
+        lines = [ln for ln in pl.lines if ln.name == "XLA Ops"] or pl.lines
+        for ln in lines:
+            for e in ln.events:
+                agg[e.name] += e.duration_ns
+                cnt[e.name] += 1
+    out = [f"{'ms':>9}  {'calls':>6}  op"]
     for name, dur in sorted(agg.items(), key=lambda t: -t[1])[:top]:
-        lines.append(f"{dur / 1e3:9.3f}  {cnt[name]:6d}  {name[:80]}")
-    return "\n".join(lines)
+        out.append(f"{dur / 1e6:9.3f}  {cnt[name]:6d}  {name[:80]}")
+    return "\n".join(out)

@@ -2,7 +2,7 @@
 
 The reference ships a C shared library — deploying it means linking
 libdogleg.so and calling into it with no compilation at runtime
-(reference Makefile:7, ABI_VERSION=2). The TPU-native equivalent of that
+(reference Makefile:7, ABI_VERSION=2). This library's equivalent of that
 deployment story is `jax.export`: trace + lower the full jitted solve
 ONCE (including the problem's closed-over data, the Newton strategy, and
 every parameter), serialize the StableHLO artifact to bytes, and serve it
@@ -67,11 +67,12 @@ def export_solver(products_fn,
       batch_size: if given, export the vmapped batched solve over
         `(batch_size, nstate)` initial states (the production batched
         configuration); otherwise a single `(nstate,)` solve.
-      dtype: input dtype (f32 for TPU serving; f64 for CPU parity).
+      dtype: input dtype (f32 for GPU serving; f64 for CPU parity).
       newton_solver: optional strategy (e.g. BlockedDenseNewtonSolver for
         mid-size batches), frozen into the artifact.
       platforms: optional list for cross-platform lowering (e.g.
-        ["tpu"]); default = the current backend.
+        ["cuda"] to export for the GPU from a CPU host); default = the
+        current backend.
       outputs: "full" (default) returns the whole SolveResult pytree;
         "p" returns only the solution vector — the latency-serving
         configuration (the result fetch is ~1/3 of the single-solve CPU

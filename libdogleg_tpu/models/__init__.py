@@ -2,7 +2,7 @@
 
 The reference ships exactly one demo problem (sample.c's quadratic surface);
 this package keeps that one as the golden integration problem and adds the
-families the TPU-scale benchmarks exercise:
+families the benchmarks exercise:
 
   quadratic_surface  — the reference sample.c problem (6 params, 100
                        measurements), all four solve modes

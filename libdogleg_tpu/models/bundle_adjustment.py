@@ -6,7 +6,7 @@ calibration / SFM, reference README.pod:5-15): a small dense "global" block
 JtJ the arrow matrix [[U, W], [W^T, V]], V block-diagonal. The reference
 hands such systems whole to CHOLMOD; here the Schur complement of the point
 blocks is eliminated explicitly (ops.newton.SchurNewtonSolver) — batched
-small Cholesky + one dense factor, the TPU-native shape (BASELINE.md
+small Cholesky + one dense factor, the accelerator shape (BASELINE.md
 config 4).
 
 The synthetic instance is linear-Gaussian: each point q_p (size bs) is

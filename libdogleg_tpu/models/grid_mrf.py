@@ -61,10 +61,12 @@ class GridMRF(NamedTuple):
                 ordering="mindeg") -> SparseProblem:
         b = self.block_size
         n_nodes, n_edges = self.n_nodes, self.edges.shape[0]
-        sp_w, se_w = np.sqrt(self.w_prior), np.sqrt(self.w_edge)
+        # Python-float weights and a data-typed identity keep a float32
+        # problem float32 when float64 is enabled
+        sp_w, se_w = float(np.sqrt(self.w_prior)), float(np.sqrt(self.w_edge))
         eu = jnp.asarray(self.edges[:, 0])
         ev = jnp.asarray(self.edges[:, 1])
-        eye = jnp.eye(b)
+        eye = jnp.eye(b, dtype=self.z_prior.dtype)
         # static block values: priors sqrt(wp) I; edges [-sqrt(we) I,
         # +sqrt(we) M_e] in (u, v) column order per row (see structure
         # build); M_e = I unless mix is set

@@ -103,9 +103,8 @@ class PinholeBA(NamedTuple):
         """Scatter-free arrow-system assembly over the (ncam, npts) grid.
 
         The generic path below scatters 640k (6,3)/(3,3)/(6,6) blocks into
-        U/V/W — TPU scatter-adds measured ~46 ms for W alone at
-        ncam=32/npts=20000 (155 ms for the whole products evaluation, the
-        bench-config-7 bottleneck). With full visibility every (cam, point)
+        U/V/W, and scatter-adds were the bench-config-7 bottleneck on the
+        accelerator this library was first built for. With full visibility every (cam, point)
         pair exists, so every reduction is a dense einsum and W is a
         transpose — no scatters at all."""
         dt = p["c"].dtype
@@ -302,7 +301,7 @@ class SparseVisibilityPinholeBA(NamedTuple):
     """Pinhole BA with point-major regular sparse visibility: point p is
     observed by cameras cam_of[p, :] (up to k_obs each). All products
     are scatter-free: per-point reductions are dense einsums over the
-    (npts, k_obs) grid; camera-axis reductions are one-hot MXU einsums;
+    (npts, k_obs) grid; camera-axis reductions are one-hot einsums;
     camera-axis broadcasts are gathers (see SparseWSchurNewtonSolver).
 
     VARIABLE visibility (different observation counts per point) is

@@ -25,6 +25,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from libdogleg_tpu.ops.pallas_mega import lane_sum
 from libdogleg_tpu.problems import (DenseProblem, FactoredBasisProblem,
                                     ProductsProblem,
                                     ResidualProblem, SparseProblem)
@@ -67,109 +68,113 @@ def jacobian(p: jnp.ndarray, gx: jnp.ndarray, gy: jnp.ndarray) -> jnp.ndarray:
     ], axis=-1)
 
 
-def products_minor(p: jnp.ndarray, meas: jnp.ndarray,
-                   X: jnp.ndarray, Y: jnp.ndarray):
-    """Batch-MINOR products for ops.pallas_mega.megakernel_optimize:
-    p (6, bt), meas (nmeas, bt), X/Y (nmeas, 1) grid columns (pass via
-    shared_data — Pallas kernels cannot capture array constants) ->
-    (norm2 (1, bt), Jt_x (6, bt), JtJ (6, 6, bt)). Same math as
-    model()/jacobian() with the batch in the lane dimension; built from
-    broadcasts only, traceable inside a Pallas kernel."""
-    x = (p[0:1] * p[1:2] * X * X + p[1:2] * p[2:3] * Y * Y
-         + p[2:3] * X * Y + p[3:4] * X + p[4:5] * Y + p[5:6]
-         - meas)              # (m, bt)
-    ones = jnp.ones_like(x[:, :1] * p[0:1])  # (m, bt) of ones
-    J = [p[1:2] * X * X,
-         p[0:1] * X * X + p[2:3] * Y * Y,
-         p[1:2] * Y * Y + X * Y,
-         X * ones, Y * ones, ones]           # 6 x (m, bt)
-    norm2 = jnp.sum(x * x, axis=0, keepdims=True)
-    jtx = jnp.concatenate(
-        [jnp.sum(Jk * x, axis=0, keepdims=True) for Jk in J], axis=0)
-    rows = []
-    for a in range(6):
-        rows.append(jnp.concatenate(
-            [jnp.sum(J[a] * J[b], axis=0, keepdims=True)
-             for b in range(6)], axis=0))
-    jtj = jnp.stack(rows, axis=0)            # (6, 6, bt)
-    return norm2, jtx, jtj
+def products_lanes(p, meas):
+    """Lane-form products for ops.pallas_mega.megakernel_optimize: p is a
+    list of 6 lane vectors, meas[r] the lane vector of measurement r ->
+    (norm2, Jt_x (6 lanes), JtJ lower triangle). Same math as
+    model()/jacobian(); the grid coordinates of row r are computed from r
+    (x-major, as make_grid), so one rolled loop walks the measurements."""
+    dt = p[0].dtype
+    c0, c1 = p[0] * p[1], p[1] * p[2]
+
+    def row(r, acc):
+        n2, jtx, jtj = acc
+        r, w = r.astype(jnp.int32), np.int32(GRID_WIDTH)
+        x = jax.lax.div(r, w).astype(dt) * GRID_DELTA + GRID_MIN
+        y = jax.lax.rem(r, w).astype(dt) * GRID_DELTA + GRID_MIN
+        xx, yy, xy = x * x, y * y, x * y
+        e = c0 * xx + c1 * yy + p[2] * xy + p[3] * x + p[4] * y + p[5] \
+            - meas[r]
+        J = (p[1] * xx, p[0] * xx + p[2] * yy, p[1] * yy + xy,
+             x, y, 1.0)
+        n2 = n2 + e * e
+        jtx = tuple(g + Ja * e for g, Ja in zip(jtx, J))
+        jtj = tuple(tuple(h + J[a] * J[b] for b, h in enumerate(hr))
+                    for a, hr in enumerate(jtj))
+        return n2, jtx, jtj
+
+    zero = jnp.zeros_like(p[0])
+    acc0 = (zero, (zero,) * NSTATE,
+            tuple((zero,) * (a + 1) for a in range(NSTATE)))
+    n2, jtx, jtj = jax.lax.fori_loop(0, NMEAS, row, acc0)
+    return n2, list(jtx), [list(r) for r in jtj]
 
 
-def factored_products_minor(p, h_hi, h_lo, n2m_hi, n2m_lo, Ghi, Glo):
-    """Batch-MINOR factored (sufficient-statistics) products for
-    ops.pallas_mega.megakernel_optimize — config 3f inside the kernel.
+def factored_products_lanes(G_pair):
+    """Lane-form factored (sufficient-statistics) products for
+    ops.pallas_mega.megakernel_optimize: config 3f inside the kernel.
 
-    Args (bt = lane-tile width):
-      p (6, bt); per-element tiles h_hi/h_lo (6, bt) and n2m_hi/n2m_lo
-      (1, bt) from factored_statistics (pass n2m components reshaped to
-      (B, 1)); shared Ghi/Glo (6, 6) from gram_pair.
+    G_pair = gram_pair(dtype) is folded into the kernel as constants. The
+    returned function takes (p, h_hi, h_lo, n2m_hi, n2m_lo): p a list of 6
+    lane vectors and the statistics of factored_statistics as data
+    (rows 0..5 of h_hi/h_lo, row 0 of n2m_hi/n2m_lo).
 
     The cancelling combinations (G c - h, m.m - c.h) run in compensated
     double-f32 exactly like FactoredBasisProblem.products, with the
     pairwise reduction replaced by a sequential two_sum cascade (same
-    O(eps^2) error class, kernel-friendly unrolled form). T's structure
-    is hand-applied (8 nonzero entries), so JtJ/Jt_x assembly is ~40
-    elementwise ops instead of two 6x6 matmuls per lane."""
+    O(eps^2) error class). T's structure is hand-applied (8 nonzero
+    entries), so JtJ/Jt_x assembly is ~40 lane ops."""
     from libdogleg_tpu.ops.compensated import two_prod, two_sum
 
-    # coefficients c = [p0 p1, p1 p2, p2, p3, p4, p5]   (6, bt)
-    c = [p[0:1] * p[1:2], p[1:2] * p[2:3], p[2:3],
-         p[3:4], p[4:5], p[5:6]]
+    Ghi, Glo = (np.asarray(g) for g in G_pair)
+    Gf = Ghi + Glo
 
-    # (G c) as compensated pairs, row by row (Ghi/Glo entries are (1,1))
-    gh, gl = [], []
-    for i in range(6):
-        s, lo = two_prod(Ghi[i:i + 1, 0:1], c[0])
-        lo = lo + Glo[i:i + 1, 0:1] * c[0]
-        for j in range(1, 6):
-            pj, pe = two_prod(Ghi[i:i + 1, j:j + 1], c[j])
-            s, se = two_sum(s, pj)
-            lo = lo + pe + se + Glo[i:i + 1, j:j + 1] * c[j]
-        gh.append(s)
-        gl.append(lo)
+    def products(p, h_hi, h_lo, n2m_hi, n2m_lo):
+        hh = [h_hi[i] for i in range(NSTATE)]
+        hl = [h_lo[i] for i in range(NSTATE)]
+        # coefficients c = [p0 p1, p1 p2, p2, p3, p4, p5]
+        c = [p[0] * p[1], p[1] * p[2], p[2], p[3], p[4], p[5]]
 
-    # g = (G c - h) collapsed; the pair keeps the cancellation exact
-    g = []
-    for i in range(6):
-        s, e = two_sum(gh[i], -h_hi[i:i + 1])
-        g.append(s + (gl[i] - h_lo[i:i + 1] + e))
+        # g = (G c - h) as compensated pairs, row by row, then collapsed
+        g = []
+        for i in range(NSTATE):
+            s, lo = two_prod(c[0], Ghi[i, 0])
+            lo = lo + Glo[i, 0] * c[0]
+            for j in range(1, NSTATE):
+                pj, pe = two_prod(c[j], Ghi[i, j])
+                s, se = two_sum(s, pj)
+                lo = lo + pe + se + Glo[i, j] * c[j]
+            s, e = two_sum(s, -hh[i])
+            g.append(s + (lo - hl[i] + e))
 
-    # Jt_x = T^T g with T's sparsity hand-applied
-    jtx = jnp.concatenate([
-        p[1:2] * g[0],
-        p[0:1] * g[0] + p[2:3] * g[1],
-        p[1:2] * g[1] + g[2],
-        g[3], g[4], g[5]], axis=0)
+        # Jt_x = T^T g with T's sparsity hand-applied
+        jtx = [p[1] * g[0], p[0] * g[0] + p[2] * g[1], p[1] * g[1] + g[2],
+               g[3], g[4], g[5]]
 
-    # JtJ = T^T (Ghi + Glo) T: M = G T column-wise, then rows of T^T M
-    Gf = Ghi + Glo                      # (6, 6) shared, collapsed
-    M = []                              # 6 columns, each (6, bt)
-    col_g = lambda j: Gf[:, j:j + 1]    # (6, 1)
-    M.append(col_g(0) * p[1:2])
-    M.append(col_g(0) * p[0:1] + col_g(1) * p[2:3])
-    M.append(col_g(1) * p[1:2] + col_g(2))
-    ones = jnp.ones_like(p[0:1])
-    for j in (3, 4, 5):
-        M.append(col_g(j) * ones)
-    Mm = jnp.stack(M, axis=1)           # (6, 6, bt): Mm[i, b]
-    jtj = jnp.stack([
-        p[1:2] * Mm[0],
-        p[0:1] * Mm[0] + p[2:3] * Mm[1],
-        p[1:2] * Mm[1] + Mm[2],
-        Mm[3], Mm[4], Mm[5]], axis=0)   # (6, 6, bt)
+        # JtJ = T^T G T: columns of M = G T, then rows of T^T M
+        def M(i, j):
+            if j == 0:
+                return Gf[i, 0] * p[1]
+            if j == 1:
+                return Gf[i, 0] * p[0] + Gf[i, 1] * p[2]
+            if j == 2:
+                return Gf[i, 1] * p[1] + Gf[i, 2]
+            return jnp.full_like(p[0], Gf[i, j])
 
-    # norm2 = c.g + ((m.m) - c.h), the second term compensated
-    cg = sum(c[i] * g[i] for i in range(6))
-    wh, wl = two_prod(c[0], h_hi[0:1])
-    wl = wl + c[0] * h_lo[0:1]
-    for i in range(1, 6):
-        pi, pe = two_prod(c[i], h_hi[i:i + 1])
-        wh, se = two_sum(wh, pi)
-        wl = wl + pe + se + c[i] * h_lo[i:i + 1]
-    uh, ue = two_sum(n2m_hi, -wh)
-    norm2 = cg + (uh + (n2m_lo - wl + ue))
-    norm2 = jnp.maximum(norm2, jnp.zeros_like(norm2))
-    return norm2, jtx, jtj
+        def TtM(a, b):
+            if a == 0:
+                return p[1] * M(0, b)
+            if a == 1:
+                return p[0] * M(0, b) + p[2] * M(1, b)
+            if a == 2:
+                return p[1] * M(1, b) + M(2, b)
+            return M(a, b)
+
+        jtj = [[TtM(a, b) for b in range(a + 1)] for a in range(NSTATE)]
+
+        # norm2 = c.g + ((m.m) - c.h), the second term compensated
+        cg = lane_sum(ci * gi for ci, gi in zip(c, g))
+        wh, wl = two_prod(c[0], hh[0])
+        wl = wl + c[0] * hl[0]
+        for i in range(1, NSTATE):
+            pi, pe = two_prod(c[i], hh[i])
+            wh, se = two_sum(wh, pi)
+            wl = wl + pe + se + c[i] * hl[i]
+        uh, ue = two_sum(n2m_hi[0], -wh)
+        norm2 = cg + (uh + (n2m_lo[0] - wl + ue))
+        return jnp.maximum(norm2, 0.0), jtx, jtj
+
+    return products
 
 
 def simulate(key: jax.Array, dtype=jnp.float64,
@@ -236,7 +241,7 @@ def make_sparse_problem(measurements: jnp.ndarray,
 # flops instead of O(m n^2) — the difference between an HBM-bound and a
 # carry-bound batched solve (see bench_kernels end_to_end rows). The
 # reference's callback model cannot express this (the callback always
-# walks the measurement vector, sample.c:130-237); it is a TPU-first
+# walks the measurement vector, sample.c:130-237); it is an accelerator-first
 # reformulation of the same mathematics.
 #
 # Numerics: G c and h carry ~1e7 magnitudes whose difference is the

@@ -3,7 +3,7 @@
 The shared object is built on demand with the system toolchain (g++) and
 cached beside the package. pybind11 is not part of this toolchain, so the
 library exposes a plain C ABI consumed via ctypes. If no compiler is
-available the numpy fallbacks in sparsity.py / pallas_bcsr.py are used —
+available the numpy fallbacks in sparsity.py / ops/bcsr.py are used —
 set LIBDOGLEG_TPU_NATIVE=0 to force them.
 """
 

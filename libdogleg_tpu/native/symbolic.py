@@ -22,7 +22,7 @@ def _i64p(a: np.ndarray):
 def jtj_schedule_native(indptr: np.ndarray, indices: np.ndarray,
                         nbcol: int) -> Optional[Tuple[np.ndarray, ...]]:
     """Sorted JtJ pair schedule (pair_i, pair_j, out_idx, out_ci, out_cj),
-    identical to pallas_bcsr.build_jtj_schedule's numpy output. None if the
+    identical to ops.bcsr.build_jtj_schedule's numpy output. None if the
     native library is unavailable."""
     lib = get_lib()
     if lib is None:

@@ -3,12 +3,12 @@
 The reference stores sparse Jacobians in scalar CSR (CHOLMOD's CSC-of-Jt,
 reference dogleg.h:11-20) and hand-rolls O(nnz) scalar-loop products
 (mul_spmatrix_densevector / norm2_mul_spmatrix_t_densevector, reference
-dogleg.c:249-281). Scalar CSR is the wrong shape for a TPU: gathers of single
-doubles starve the VPU/MXU. Here the Jacobian is *block*-CSR — a static block
+dogleg.c:249-281). Scalar CSR is the wrong shape for an accelerator: gathers
+of single doubles leave its vector units idle. Here the Jacobian is *block*-CSR — a static block
 sparsity pattern (the one-time "symbolic analysis", mirroring the reference's
 single cholmod_analyze at dogleg.c:649-654) plus a dense (nnzb, bm, bn) value
 tensor — so every product is a batch of dense block contractions plus a
-segment-sum, all static-shaped and MXU/VPU friendly.
+segment-sum, all static-shaped.
 
 The structure (numpy, host-side) is fixed per problem; only `values` is traced.
 """
@@ -118,6 +118,42 @@ def bcsr_matvec(J: BCSRJacobian, v: jnp.ndarray) -> jnp.ndarray:
     return out.reshape(s.nmeas)
 
 
+class JtJSchedule(NamedTuple):
+    """Static (host-side) work list for block-JtJ formation: for every pair
+    of stored blocks sharing a block row, one block contraction; pairs
+    sorted by output block so each output block is one contiguous run.
+    This is the symbolic-analysis artifact, computed once per structure
+    (mirroring the reference's single cholmod_analyze, dogleg.c:649-654)."""
+    pair_i: np.ndarray    # (npairs,) int32 index into values
+    pair_j: np.ndarray    # (npairs,) int32 index into values
+    out_idx: np.ndarray   # (npairs,) int32 index into the output block list
+    out_ci: np.ndarray    # (nnzb_out,) block-row (state) coordinate
+    out_cj: np.ndarray    # (nnzb_out,) block-col (state) coordinate
+
+
+def build_jtj_schedule(s: BCSRStructure) -> JtJSchedule:
+    """The JtJ pair schedule of `s`: the native (C++) builder for large
+    patterns, else the numpy form below (identical output)."""
+    from libdogleg_tpu.native.symbolic import jtj_schedule_native
+    nat = jtj_schedule_native(s.indptr, s.indices, s.nbcol)
+    if nat is not None:
+        pi, pj, out_idx, out_ci, out_cj = nat
+        return JtJSchedule(pair_i=pi, pair_j=pj, out_idx=out_idx,
+                           out_ci=out_ci, out_cj=out_cj)
+    pi, pj = s.jtj_pairs()
+    ci = s.indices[pi]
+    cj = s.indices[pj]
+    order = np.lexsort((cj, ci))
+    pi, pj, ci, cj = pi[order], pj[order], ci[order], cj[order]
+    keys = ci.astype(np.int64) * s.nbcol + cj
+    uniq, out_idx = np.unique(keys, return_inverse=True)
+    return JtJSchedule(pair_i=pi.astype(np.int32),
+                       pair_j=pj.astype(np.int32),
+                       out_idx=out_idx.astype(np.int32),
+                       out_ci=(uniq // s.nbcol).astype(np.int32),
+                       out_cj=(uniq % s.nbcol).astype(np.int32))
+
+
 class JtJLowerSchedule(NamedTuple):
     """Static schedule for forming the lower triangle of J^T J as
     block-sparse values in the input layout of sparse_cholesky.analyze:
@@ -133,9 +169,8 @@ class JtJLowerSchedule(NamedTuple):
 
 
 def jtj_lower_schedule(s: BCSRStructure) -> JtJLowerSchedule:
-    """Lower-triangle JtJ block pattern + pair schedule for `s` (native
-    C++ fast path via build_jtj_schedule; filtered to rows >= cols)."""
-    from libdogleg_tpu.ops.pallas_bcsr import build_jtj_schedule
+    """Lower-triangle JtJ block pattern + pair schedule for `s`
+    (build_jtj_schedule filtered to rows >= cols)."""
     sch = build_jtj_schedule(s)
     keep_block = sch.out_ci >= sch.out_cj
     new_id = np.cumsum(keep_block) - 1
@@ -152,7 +187,7 @@ def bcsr_jtj_lower_blocks(J: BCSRJacobian,
                           sched: JtJLowerSchedule) -> jnp.ndarray:
     """The stored lower-triangle blocks of J^T J: (nnzb_jtj, bn, bn) in the
     schedule's (rows, cols) order — the direct input of
-    sparse_cholesky.factorize. One batched MXU contraction + one
+    sparse_cholesky.factorize. One batched contraction + one
     segment-sum; JtJ never densifies."""
     pi = jnp.asarray(sched.pair_i)
     pj = jnp.asarray(sched.pair_j)
@@ -166,7 +201,7 @@ def bcsr_jtj_dense(J: BCSRJacobian) -> jnp.ndarray:
     """J^T J as a dense (nstate, nstate) matrix, formed block-by-block.
 
     Enumerates the static list of same-row block pairs (symbolic schedule),
-    batches the (bn, bm) x (bm, bn) products onto the MXU, and scatter-adds
+    batches the (bn, bm) x (bm, bn) products, and scatter-adds
     into block coordinates. Replaces the reference's implicit JtJ inside
     CHOLMOD (dogleg.c:659) / packed outer-product accumulation
     (dogleg.c:709-714). Suitable while nstate is moderate; a block-sparse JtJ

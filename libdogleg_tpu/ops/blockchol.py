@@ -2,26 +2,23 @@
 
 XLA's lax.linalg.cholesky lowering is tuned for LARGE single factorizations;
 for a BATCH of mid-size SPD systems (the multi-camera-calibration regime,
-Nstate 64-128, thousands of instances) it is catastrophically slow on TPU:
-measured 4.85 ms for (512, 64, 64) f32 — 0.01 TFLOP/s, ~60x the cost of the
-J-product matmuls it sits between. The unrolled smallchol flat-DAG approach
+Nstate 64-128, thousands of instances) it was measured slow on the
+accelerator this library was first built for; on the GPU it lowers to
+cuSOLVER and the comparison is not measured yet (ROADMAP A5). The unrolled smallchol flat-DAG approach
 (ops/smallchol.py) can't stretch there either: unrolling n=128 emits ~350k
 scalar slots.
 
 This module composes the two regimes: a right-looking BLOCKED factorization
 with static 16-wide panels — unrolled 16x16 diagonal Cholesky and unrolled
-16-column triangular solves (flat VPU DAGs, batch-friendly), with the O(n^3)
-panel/trailing updates done as batched MXU matmuls. Everything is a static
+16-column triangular solves (flat elementwise DAGs, batch-friendly), with
+the O(n^3) panel/trailing updates done as batched matmuls. Everything is a static
 Python loop over n/16 stages, so the whole factorization stays one fusable
 jit region with no data-dependent control flow (SURVEY.md section 7 design
 stance).
 
 The reference's analog is LAPACK dpotrf's blocked right-looking algorithm
 (reference dogleg.c:778-804 calls dpotrf_/dpptrf_); this is that algorithm
-re-shaped for the TPU's MXU/VPU split and trace-time unrolling.
-
-Measured (v5e, f32): (512, 64, 64) factorization 4850 -> ~200 us; see
-BENCH_KERNELS_r02.json for the tracked numbers.
+re-shaped for batched matmuls and trace-time unrolling.
 """
 
 from __future__ import annotations
@@ -65,9 +62,7 @@ def _trsm_right_lt(P: jnp.ndarray, Lkk: jnp.ndarray) -> jnp.ndarray:
         s = P[..., :, j]
         for m in range(j):
             # note: Lkk[..., j, m] then [..., None] — fusing the newaxis
-            # into the integer indexing lowers as a >2-D gather, which the
-            # Pallas TPU backend cannot lower (this helper runs inside
-            # ops/pallas_blockchol.py kernels too)
+            # into the integer indexing lowers as a >2-D gather
             s = s - X[m] * Lkk[..., j, m][..., None]
         X[j] = s * inv_d[j][..., None]
     return jnp.stack(X, axis=-1)
@@ -96,7 +91,7 @@ def blocked_cholesky(A: jnp.ndarray, block: int = BLOCK):
         if k < nb - 1:
             Pl = _trsm_right_lt(W[..., rest, kk], Lkk)
             L = L.at[..., rest, kk].set(Pl)
-            # trailing Schur update on the MXU; HIGHEST precision keeps the
+            # trailing Schur update as a matmul; HIGHEST precision keeps the
             # f32 factor at lax.linalg accuracy (bf16 multiplies would not)
             W = W.at[..., rest, rest].add(
                 -jnp.matmul(Pl, jnp.swapaxes(Pl, -1, -2), precision=_HI))

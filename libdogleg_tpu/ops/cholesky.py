@@ -52,7 +52,7 @@ def escalating_lambda(try_factor, lam, dtype, *,
     current lambda; while singular, lambda <- lambda_initial if zero else
     lambda*10, and retry (reference dogleg.c:670-676, 811-815). Bounded at
     lambda_max_tries escalations; ok=False if still singular (the reference
-    ASSERT-exits on non-finite lambda, dogleg.c:673 — a batched TPU solve
+    ASSERT-exits on non-finite lambda, dogleg.c:673 — a batched device solve
     flags the element as failed instead).
 
     try_factor(lam) -> (state_pytree, ok). Returns (state, lam, ok).

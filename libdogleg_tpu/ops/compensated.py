@@ -7,13 +7,13 @@ as the solve error it is trying to measure — so fixed-precision
 refinement improves backward stability but barely moves forward error.
 The reference never faces this because it is C doubles end-to-end
 (reference dogleg.c:125-127 sets 1e-8 thresholds on that assumption).
-On f32-native TPUs the route back toward that contract is a residual
+On f32 device paths the route back toward that contract is a residual
 accumulated in ~2x working precision using only f32 hardware ops:
 classical compensated arithmetic (Dekker splitting / Knuth two-sum,
 Ogita-Rump-Oishi cascaded summation).
 
-All building blocks are elementwise VPU ops — exact f32 adds/multiplies
-of split operands — so they are dtype-generic (f32 on TPU, f64 under the
+All building blocks are elementwise ops — exact f32 adds/multiplies
+of split operands — so they are dtype-generic (f32 on the device, f64 under the
 x64 test config, where they yield ~quad-precision residuals) and XLA
 does not reassociate float arithmetic, so the transformations survive
 compilation. The pairwise reduction is log2(n) vectorized rounds, cheap

@@ -3,7 +3,7 @@
 The reference implements these as scalar C loops over packed/CSR storage
 (reference dogleg.c:186-347, 529-617, 927-998, 1085-1165, 1300-1356). Here
 they are expressed as whole-array jnp ops so XLA can fuse them and tile the
-contractions onto the MXU. All functions are shape-polymorphic over a leading
+contractions onto the matrix units. All functions are shape-polymorphic over a leading
 batch via vmap and contain no Python control flow on traced values.
 
 The central design difference from the reference: every quantity the
@@ -12,7 +12,7 @@ trust-region iteration needs is derived from the products (norm2_x, Jt_x, JtJ)
 identity the reference uses only in its DENSE_PRODUCTS mode, reference
 dogleg.c:580-602, 1129-1163) instead of a second pass over the measurement
 axis. This makes the measurement axis disappear after one contraction, which
-is what lets solves batch, shard, and stay MXU-resident.
+is what lets solves batch and shard.
 """
 
 from __future__ import annotations
@@ -27,7 +27,7 @@ def build_jtj(J: jnp.ndarray) -> jnp.ndarray:
 
     Replaces the reference's packed-upper outer-product accumulation
     (accum_outerproduct_packed_upper, reference dogleg.c:283-307, used at
-    dogleg.c:709-714) with a single MXU matmul.
+    dogleg.c:709-714) with a single matmul.
     """
     return jnp.matmul(J.T, J, preferred_element_type=J.dtype)
 

@@ -1,9 +1,8 @@
 """Large-N dense Cholesky: recursive blocked right-looking, GEMM-dominant.
 
-XLA's lax.linalg.cholesky lowering measured 4.4 TFLOP/s at n=2048 on a
-~200 TFLOP/s chip (BENCH_KERNELS_r02.json: sol_frac 0.023) — its panel
-algorithm leaves the MXU idle. ops/blockchol.py fixes the BATCHED mid-size
-regime but is trace-time-unrolled (compile cost grows ~n^2/256), capping it
+This replaces XLA's lax.linalg.cholesky for large n; whether it beats
+cuSOLVER on the GPU is not measured (ROADMAP A6). ops/blockchol.py covers
+the BATCHED mid-size regime but is trace-time-unrolled (compile cost grows ~n^2/256), capping it
 at n<=256. This module covers single/small-batch LARGE n by restructuring
 so ~97% of the flops are large HIGHEST-precision GEMMs:
 
@@ -14,18 +13,18 @@ so ~97% of the flops are large HIGHEST-precision GEMMs:
        of the work for a non-unrolled loop body)
     2. invert it (lower-triangular)   — _tri_inv: static recursion, all
        GEMMs except unrolled 16x16 leaves; turns the panel trsm into a
-       GEMM (the cuBLAS/MAGMA trick, re-shaped for the MXU)
+       GEMM (the cuBLAS/MAGMA trick)
     3. panel = W[rest, kk] @ inv(Lkk)^T          (GEMM)
     4. trailing update W[rest, rest] -= P @ P^T  (GEMM)
 
 The reference's analog is LAPACK dpotrf's blocked right-looking algorithm
 (reference dogleg.c:778-804 calls dpotrf_); this is that algorithm
 re-shaped so the trailing updates — which carry (1 - (panel/n)^2) of the
-n^3/3 flops — run as MXU-saturating matmuls.
+n^3/3 flops — run as large matrix products.
 
 Numerics: all contractions run at Precision.HIGHEST (true-f32 multiplies);
 the explicit triangular inverse costs a modest constant-factor in backward
-error vs substitution (standard for GPU/TPU BLAS trsm) and composes with
+error vs substitution (standard for GPU BLAS trsm) and composes with
 the compensated iterative refinement in ops/newton (refine_iters) when
 tighter solves are needed.
 
@@ -109,8 +108,7 @@ def _tri_inv(L: jnp.ndarray) -> jnp.ndarray:
     return jnp.concatenate([top, bot], axis=-2)
 
 
-def large_cholesky(A: jnp.ndarray, panel: int = PANEL,
-                   panel_impl: str = "auto", interpret: bool = False):
+def large_cholesky(A: jnp.ndarray, panel: int = PANEL):
     """Cholesky of (..., n, n) SPD with n static and large (>256 is where
     this beats both lax.linalg and blockchol). Returns (L, ok), the
     blockchol/smallchol contract. n is padded to a multiple of SUB with an
@@ -118,23 +116,12 @@ def large_cholesky(A: jnp.ndarray, panel: int = PANEL,
 
     The outer panel loop is a static Python loop, so the trailing
     submatrix SHRINKS each iteration instead of being updated in place:
-    the r2-era `.at[rest, rest].add` form re-wrote the full (n, n) W and
-    L every panel (measured on-chip: 1.99 TFLOP/s at n=2048, HBM-copy
-    bound, BENCH_KERNELS_r04.json); here each panel touches only the
-    remaining (n-j0)^2 block and the factor columns are assembled once
-    at the end.
-
-    panel_impl selects the per-panel diagonal-block factorization:
-      "pallas" — ops/pallas_panelchol.py: ONE kernel per panel produces
-        the block factor and its triangular inverse in VMEM, leaving
-        only MXU GEMMs in the XLA graph (the critical-path fix for the
-        2.29-vs-4.48 TFLOP/s gap, BENCH_KERNELS_r04.json);
-      "xla"    — the fori_loop sub-panel form + recursive triangular
-        inverse (no Pallas dependency);
-      "auto"   — "pallas" on the TPU backend, "xla" elsewhere.
+    an in-place `.at[rest, rest].add` form would re-write the full (n, n)
+    W and L every panel; here each panel touches only the remaining
+    (n-j0)^2 block and the factor columns are assembled once at the end.
+    Each diagonal block is factored by the fori_loop sub-panel form and
+    inverted by the recursive triangular inverse.
     """
-    if panel_impl == "auto":
-        panel_impl = "pallas" if jax.default_backend() == "tpu" else "xla"
     n = A.shape[-1]
     W, npad = _pad_to_block(A, n, SUB)
     batch = W.shape[:-2]
@@ -142,19 +129,12 @@ def large_cholesky(A: jnp.ndarray, panel: int = PANEL,
     cols = []
     for j0 in range(0, npad, panel):
         pw = min(panel, npad - j0)
-        Tinv = None
-        if panel_impl == "pallas":
-            from libdogleg_tpu.ops.pallas_panelchol import panel_factor
-            Lkk, Tinv, okk = panel_factor(W[..., :pw, :pw],
-                                          interpret=interpret)
-        else:
-            Lkk, okk = _chol_fori(W[..., :pw, :pw])
+        Lkk, okk = _chol_fori(W[..., :pw, :pw])
         ok = okk if ok is None else ok & okk
         parts = [jnp.zeros(batch + (j0, pw), A.dtype), Lkk] if j0 \
             else [Lkk]
         if j0 + pw < npad:
-            if Tinv is None:
-                Tinv = _tri_inv(Lkk)
+            Tinv = _tri_inv(Lkk)
             P = jnp.matmul(W[..., pw:, :pw],
                            jnp.swapaxes(Tinv, -1, -2), precision=_HI)
             W = W[..., pw:, pw:] - jnp.matmul(

@@ -36,9 +36,9 @@ class GNResult(NamedTuple):
 
 
 # Mixed-precision residual computation for iterative refinement. Two
-# levels matter on TPU: (1) matmuls multiply in bfloat16 by default
-# (Precision.DEFAULT, ~2^-8 relative per product) — HIGHEST forces
-# true-f32 multiplication for the residual contractions; (2) even a
+# levels matter: (1) a float32 matmul at Precision.DEFAULT may multiply
+# in a reduced format (TF32 on the GPU, ~2^-11 relative per product) —
+# HIGHEST forces true-f32 multiplication for the residual contractions; (2) even a
 # true-f32 residual r = b - A u carries rounding ~ n*eps32*|A||u|, the
 # same order as the solve error it is measuring, so refinement against
 # it stalls near the unrefined forward error. The strategies therefore
@@ -73,7 +73,7 @@ class DenseNewtonSolver:
 
     refine_iters > 0 runs that many iterative-refinement passes of the GN
     solve against the computed factor (see _refine) — the mixed-precision
-    option that recovers near-f64 solve accuracy on f32-native TPUs."""
+    option that recovers near-f64 solve accuracy on float32 device paths."""
     refine_iters: int = 0
 
     def quad_form(self, JtJ, v):
@@ -109,17 +109,17 @@ class BlockedDenseNewtonSolver:
     """Dense JtJ through the 16-block-panel Cholesky (ops/blockchol.py).
 
     The mid-size BATCHED regime (Nstate 17..256, thousands of vmapped
-    instances): XLA's lax.linalg lowering costs 4.85 ms for a (512, 64, 64)
-    f32 factorization where the blocked-panel form costs ~180 us (26x), by
-    keeping the O(n^3) work on the MXU and the per-column recurrences as
-    unrolled flat VPU DAGs. Trade-off: trace-time unrolling grows compile
+    instances): the blocked-panel form keeps the O(n^3) work in batched
+    matmuls and the per-column recurrences as unrolled flat elementwise
+    DAGs. Whether it beats XLA's lax.linalg (cuSOLVER) lowering on the
+    GPU is not measured yet (ROADMAP A5). Trade-off: trace-time unrolling grows compile
     time with Nstate (tens of seconds at Nstate=128) — right for production
     batched solves, wrong for one-off single solves, hence a separate
     strategy rather than a new factorize_jtj default.
 
     Above BLOCKED_MAX_N the factorization dispatches to the recursive
     GEMM-dominant form (ops/largechol.py) instead: compile size stays
-    O(n/panel), the trailing updates run as large MXU matmuls, and the
+    O(n/panel), the trailing updates run as large matmuls, and the
     triangular solves ride lax.linalg (O(n^2), off the critical flops).
     One strategy covers dense Nstate 17..thousands."""
     refine_iters: int = 0
@@ -185,7 +185,7 @@ def schur_split(v: jnp.ndarray, nc: int, n_points: int, bs: int):
 class SchurNewtonSolver:
     """Gauss-Newton via Schur-complement elimination of the point blocks.
 
-    factorize: Vhat_i = V_i + lam I (vmapped small Cholesky, MXU/VPU
+    factorize: Vhat_i = V_i + lam I (vmapped small Cholesky, batch
     friendly); S = U + lam I - sum_i W_i Vhat_i^{-1} W_i^T (one batched
     einsum); dense Cholesky of S.
     solve:     y_i = Vhat_i^{-1} rp_i; dc = S^{-1}(rc - sum_i W_i y_i);
@@ -193,20 +193,16 @@ class SchurNewtonSolver:
 
     This keeps only nc^2 + np*bs^2 state resident instead of Nstate^2 and
     turns the factorization into batched small blocks + one small dense
-    factor — the TPU shape for BA problems.
+    factor — the accelerator shape for BA problems.
     """
     nc: int
     n_points: int
     block_size: int
     # Point-block factor/solve backend for block_size <= 16:
-    #   "unrolled" (default) — smallchol flat VPU DAGs. Measured wins:
-    #     (20000, 3, 3) chol 9.4 us vs 6832 us lax (727x); linear-BA
-    #     latency 17 -> 2.9 ms; pinhole-BA 91 ms vs 161 ms lax.
-    #   "lax" — lax.linalg, kept as an escape hatch: when a SLOW products
-    #     evaluation dominated the pinhole-BA loop (the old scatter-based
-    #     assembly), the unrolled DAG scheduled badly against it and lax
-    #     measured faster (1.69 vs 1.98 s) — if a model's solve regresses
-    #     with the default, A/B this flag.
+    #   "unrolled" (default) — smallchol flat elementwise DAGs.
+    #   "lax" — lax.linalg, kept as an escape hatch: if a model's solve
+    #     regresses with the default, A/B this flag. Which wins on the
+    #     GPU is not measured yet (ROADMAP C4).
     # block_size > 16 always uses lax.
     point_solver: str = "unrolled"
     # iterative-refinement passes of the GN solve against the computed
@@ -392,7 +388,7 @@ class SparseNewtonSolver:
                 amalgamate: int = 1) -> "SparseNewtonSolver":
         """amalgamate > 1 merges that many consecutive (post-ordering)
         block columns into supernodes (libdogleg_tpu.supernodal): fewer,
-        fatter dependency levels — the MXU-friendly regime for small b.
+        fatter dependency levels — the matmul-friendly regime for small b.
 
         ordering defaults to the right companion of the factorization
         style: "mindeg" (fill-minimizing) for the simplicial path, "rcm"
@@ -510,10 +506,10 @@ class SparseWSchurJtJ(NamedTuple):
     nonzero; this form stores exactly those.
 
     No reference equivalent (libdogleg hands BA systems whole to CHOLMOD);
-    the TPU design rule here is scatter-free consumption: every
-    camera-axis reduction is a one-hot MXU einsum and every camera-axis
-    broadcast is a gather (TPU scatters serialize; measured 46 ms to
-    scatter-assemble a dense W this size — models/pinhole_ba.py history).
+    the design rule here is scatter-free consumption: every camera-axis
+    reduction is a one-hot einsum and every camera-axis broadcast is a
+    gather (scatters serialize on the accelerator this library was first
+    built for; their cost on the GPU is not measured).
     """
     U: jnp.ndarray        # (nc, nc) dense camera block (nc = ncam * cb)
     Wv: jnp.ndarray       # (np, k_obs, cb, bs) nonzero W blocks, point-major
@@ -662,12 +658,12 @@ class SparseWSchurNewtonSolver:
             # Point rows compensate fully (small static contractions).
             # Camera rows: the per-camera segmented reduction over
             # observations can only be compensated through a STATIC
-            # gather table (build_cam_gather) — the one-hot MXU einsum
+            # gather table (build_cam_gather) — the one-hot einsum
             # rounds its accumulation invisibly. With cam_gather set the
             # residual is full double-f32; without it the camera rows
             # fall back to a Precision.HIGHEST f32 residual, which still
-            # corrects the bf16-multiply error of the default-precision
-            # solve path on TPU.
+            # corrects the reduced-precision multiplies (TF32 on the GPU)
+            # of the default-precision solve path.
             cg = self.cam_gather
 
             def resid(v):
@@ -745,8 +741,8 @@ def onehot_cam_reduce(cam_of, vals, ncam: int,
                       chunk_limit: int = 1 << 24):
     """Scatter-free segment reduction over the camera axis:
     out[c] = sum over (p, k) with cam_of[p, k] == c of vals[p, k],
-    for vals (np, k_obs, ...trailing). Implemented as a one-hot MXU
-    einsum (TPU scatters serialize), processed in point chunks so the
+    for vals (np, k_obs, ...trailing). Implemented as a one-hot
+    einsum (scatter-free), processed in point chunks so the
     (np, k_obs, ncam) selector never materializes whole (410 MB at
     np=200000, ncam=128). Shared by SparseWSchurNewtonSolver and the
     sparse-visibility BA products assembly."""

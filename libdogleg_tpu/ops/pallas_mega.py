@@ -1,41 +1,43 @@
 """Whole-solve Pallas megakernel for batched small-N dense problems.
 
-The round-3 roofline analysis (docs/ROOFLINE.md) pinned the batched
-headline's gap to speed-of-light on two mechanisms the XLA program cannot
-avoid: the solver carry round-trips HBM once per attempt wavefront, and
-every wavefront pays a fixed dispatch cost. This kernel removes both: ONE
-`pallas_call` runs the ENTIRE dog-leg solve — products, Cauchy/GN/dog-leg
-step selection, trust-region update, lambda escalation, termination — for
-a tile of problems whose state lives in VMEM (registers) across all
-attempts. HBM traffic collapses to one read of the problem data and one
-write of the results per SOLVE instead of ~80 f32 of carry per ATTEMPT.
+One `pallas_call` runs the ENTIRE dog-leg solve for a tile of problems:
+products, Cauchy/GN/dog-leg step selection, trust-region update, lambda
+escalation and termination. The solver state stays in registers across
+all attempts, so device memory sees one read of the problem data and one
+write of the results per SOLVE. The XLA path (`batched_optimize` with
+the vmapped `while_loop`) instead launches a chain of kernels per
+attempt and copies each loop predicate back to the host.
 
-Layout is batch-minor throughout (the lane dimension is the batch), the
-in-VMEM analog of ``batched_optimize(layout="minor")``: per-problem
-scalars are (1, bt) rows, vectors (n, bt), matrices (n, n, bt). n is
-static and small (<= 16), so all linear algebra is unrolled in COLUMN
-form — per the measured Mosaic pitfalls in ops/pallas_blockchol.py,
-scalar-unrolled recurrences must keep (1, bt) row shapes, never (bt,)
-temporaries.
+The kernel is compiled through Pallas's Triton route. Triton needs every
+tensor to have a power-of-two size and has no rule for value slicing, so
+the kernel is written in LANE FORM: one problem per lane, every value a
+`(bt,)` vector with `bt` (the tile width) a power of two. Vectors and
+matrices of the state are Python lists of lanes (`p[i]`, `L[i][j]`), all
+linear algebra is unrolled over the static state size n <= 16, and
+per-problem data rows are read by static or scalar index from the refs.
 
 Semantics mirror solver.py attempt-for-attempt (reference
 dogleg.c:1172-1476 placements: criterion 1 on accepted/initial points,
 criterion 2 before evaluating the trial, criterion 3 after a reject,
 permanent escalating lambda per dogleg.c:670-676). Differences, by
 design:
-  * no lazy-GN caching: the masked vector form computes the (tiny,
-    ~n^3/3 flop) factorization every attempt that needs a GN step; the
-    RESULT is identical because JtJ and the carried lambda are unchanged
-    on rejects — only redundant flops are spent, which the VMEM
-    residency buys back many times over;
-  * wavefront granularity is the batch TILE (one grid program), so a
-    tile only waits for its own slowest member, not the global batch's;
+  * no lazy-GN caching: the factorization is recomputed every attempt
+    that needs a GN step; the RESULT is identical because JtJ and the
+    carried lambda are unchanged on rejects;
+  * wavefront granularity is the lane tile (one grid program), so a tile
+    only waits for its own slowest member, not the global batch's;
   * record_history is not supported (use batched_optimize for the vnlog
     stream).
 
-The kernel is exact-math identical to the XLA path up to reduction
-order; tests pin decision parity (step counts, stop reasons) and
-parameter agreement on the benchmark workload in interpret mode.
+Products in lane form: ``products(p, *data, *shared) -> (norm2, Jt_x,
+JtJ)`` where ``p`` is a list of n lane vectors, each ``data[k]`` is
+indexable by a row number (a kernel ref or a ``(rows, bt)`` array:
+``data[k][r]`` is a lane vector), each ``shared[k]`` is an array common
+to every problem (``shared[k][r, j]`` is a scalar), ``norm2`` is a lane
+vector, ``Jt_x`` a list of n lane vectors and ``JtJ`` a nested list whose
+entries ``JtJ[i][j]`` with ``j <= i`` are read (the lower triangle).
+Other constants are Python or numpy scalars closed over by the function:
+a kernel captures no array constant.
 """
 
 from __future__ import annotations
@@ -46,133 +48,131 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pltriton
 
 from libdogleg_tpu.params import DoglegParameters
 from libdogleg_tpu.solver import SolveResult, StopReason
 
+# Lane-tile width and warps per program, chosen on an H100 (PERF.md: every
+# tile swept was within run-to-run noise).
+DEFAULT_BLOCK_BATCH = 64
+NUM_WARPS = 2
+
+
 # ---------------------------------------------------------------------------
-# batch-minor small linear algebra (everything (row, lane) shaped)
+# lane-form small linear algebra (every value a (bt,) vector)
 # ---------------------------------------------------------------------------
 
 
-def _chol_minor(A):
-    """Unrolled Cholesky of (n, n, bt) SPD matrices, column form.
+def lane_sum(terms):
+    """Pairwise sum of a list of lanes (shorter dependency chains than a
+    running sum, and the rounding of a tree)."""
+    terms = list(terms)
+    while len(terms) > 1:
+        terms = [terms[i] + terms[i + 1] if i + 1 < len(terms) else terms[i]
+                 for i in range(0, len(terms), 2)]
+    return terms[0]
 
-    Returns (L lower (n, n, bt), ok (1, bt) f32 0/1). Failed lanes get a
-    clamped pivot so downstream arithmetic stays finite; their ok is 0.
-    """
-    n = A.shape[0]
-    dt = A.dtype
-    tiny = jnp.asarray(np.finfo(np.float32).tiny, dt)
-    ok = jnp.ones_like(A[0:1, 0])
-    cols = []
+
+def _chol_lanes(A, n, tiny):
+    """Unrolled Cholesky of the lower triangle A[i][j] (j <= i).
+
+    Returns (L lower, ok bool lane). A failed lane gets a clamped pivot so
+    downstream arithmetic stays finite; its ok is False."""
+    L = [[None] * n for _ in range(n)]
+    ok = None
     for j in range(n):
-        acc = A[:, j]
+        d2 = A[j][j]
         for k in range(j):
-            acc = acc - cols[k] * cols[k][j:j + 1]
-        d2 = acc[j:j + 1]
-        ok = ok * (d2 > 0).astype(dt) * jnp.isfinite(d2).astype(dt)
+            d2 = d2 - L[j][k] * L[j][k]
+        good = (d2 > 0) & jnp.isfinite(d2)
+        ok = good if ok is None else ok & good
         d = jnp.sqrt(jnp.maximum(d2, tiny))
-        col = acc / d
-        # zero the strictly-upper part of this column. The mask is built
-        # from iota, not a literal array: Pallas kernels cannot capture
-        # array constants (they would be jaxpr constvars).
-        rowmask = jax.lax.broadcasted_iota(jnp.int32, (n, 1), 0) >= j
-        cols.append(jnp.where(rowmask, col, jnp.zeros_like(col)))
-    return jnp.stack(cols, axis=1), ok
+        L[j][j] = d
+        for i in range(j + 1, n):
+            acc = A[i][j]
+            for k in range(j):
+                acc = acc - L[i][k] * L[j][k]
+            L[i][j] = acc / d
+    return L, ok
 
 
-def _cho_solve_minor(L, b):
-    """Solve L L^T x = b for (n, n, bt) factors and (n, bt) RHS.
-
-    COLUMN form: each substitution step is one (1, bt) pivot divide plus
-    one (n, bt) saxpy on the running residual — ~4n vector ops total
-    instead of the ~2n^2 row ops of the classic row form. The row form
-    is issue-bound on TPU (each (1, bt) op occupies a fraction of the
-    VPU and the chain is sequential); fewer, wider ops run faster even
-    though they touch more elements. Correctness: column i of lower L
-    has zeros above the diagonal, so the saxpy cannot corrupt unread
-    rows (row i itself is consumed before its update lands)."""
-    n = L.shape[0]
-    s = b
-    ys = []
-    for i in range(n):            # forward: L y = b
-        d = s[i:i + 1] / L[i:i + 1, i]
-        ys.append(d)
-        if i + 1 < n:
-            s = s - L[:, i] * d
-    t = jnp.concatenate(ys, axis=0)
-    xs = [None] * n
-    for i in reversed(range(n)):  # backward: L^T x = y
-        d = t[i:i + 1] / L[i:i + 1, i]
-        xs[i] = d
-        if i:
-            # column i of L^T is row i of L: zeros beyond the diagonal,
-            # so rows > i (already consumed) are untouched
-            t = t - L[i] * d
-    return jnp.concatenate(xs, axis=0)
+def _cho_solve_lanes(L, b, n):
+    """Solve L L^T x = b by forward then backward substitution."""
+    y = [None] * n
+    for i in range(n):
+        acc = b[i]
+        for k in range(i):
+            acc = acc - L[i][k] * y[k]
+        y[i] = acc / L[i][i]
+    x = [None] * n
+    for i in reversed(range(n)):
+        acc = y[i]
+        for k in range(i + 1, n):
+            acc = acc - L[k][i] * x[k]
+        x[i] = acc / L[i][i]
+    return x
 
 
-def _quad_form_minor(JtJ, v):
-    """v^T JtJ v per lane: (n, n, bt), (n, bt) -> (1, bt)."""
-    mv = jnp.sum(JtJ * v[None, :, :], axis=1)
-    return jnp.sum(v * mv, axis=0, keepdims=True)
+def _quad_form_lanes(A, v, n):
+    """v^T A v for symmetric A given by its lower triangle."""
+    diag = lane_sum(A[i][i] * v[i] * v[i] for i in range(n))
+    off = [A[i][j] * v[i] * v[j] for i in range(n) for j in range(i)]
+    return diag + 2.0 * lane_sum(off) if off else diag
 
 
-def _conc(v, anchor):
-    """Force a (1, bt) row into a CONCRETE sublane layout.
-
-    Mosaic gives keepdims-reduce results a sublane-REPLICATED vector
-    layout; `select_n` cannot join a replicated operand with a
-    concretely-laid-out while-loop carry ("Not implemented: Sublane
-    broadcast", measured on v5e — minimal repro in BENCH_NOTES_r04.md).
-    Elementwise arithmetic CAN join them, so adding a concrete zero
-    (anchor * 0, not constant-folded by Mosaic: 0*x is unsound float
-    folding) relayouts v at the cost of two vector ops."""
-    return v + anchor * jnp.zeros_like(anchor)
+def _dot_lanes(u, v):
+    return lane_sum(a * b for a, b in zip(u, v))
 
 
-def _gauss_newton_minor(JtJ, g, lam, need, *, lambda_initial,
+def _max_abs_lanes(v):
+    m = jnp.abs(v[0])
+    for x in v[1:]:
+        m = jnp.maximum(m, jnp.abs(x))
+    return m
+
+
+def _gauss_newton_lanes(jtj, g, lam, need, n, *, lambda_initial,
                         lambda_max_tries):
     """Masked escalating-lambda GN solve (reference dogleg.c:670-676).
 
-    Only lanes with need=1 escalate their lambda; others keep lam and
-    report ok. Returns (step (n, bt), norm2 (1, bt), lam (1, bt),
-    fac_ok (1, bt) f32)."""
-    n = JtJ.shape[0]
-    dt = JtJ.dtype
-    # iota-built identity (array constants cannot be captured in Pallas)
-    ri = jax.lax.broadcasted_iota(jnp.int32, (n, n, 1), 0)
-    ci = jax.lax.broadcasted_iota(jnp.int32, (n, n, 1), 1)
-    eye = (ri == ci).astype(dt)
+    Only lanes with `need` escalate their lambda; others keep lam and
+    report ok. Returns (step list, norm2, lam, fac_ok)."""
+    dt = lam.dtype
+    tiny = np.asarray(np.finfo(np.float32).tiny, dt)
 
     def factor(lam_v):
-        return _chol_minor(JtJ + eye * lam_v[None])
+        A = [[jtj[i][j] + lam_v if i == j else jtj[i][j]
+              for j in range(i + 1)] for i in range(n)]
+        L, ok = _chol_lanes(A, n, tiny)
+        return [L[i][j] for i in range(n) for j in range(i + 1)], ok
 
-    L, ok = factor(lam)
-    ok = _conc(ok, lam)
+    def unflat(flat):
+        it = iter(flat)
+        return [[next(it) for _ in range(i + 1)] for i in range(n)]
+
+    Lf, ok = factor(lam)
+
+    def unresolved(ok_c):
+        return jnp.max((need & ~ok_c).astype(jnp.int32)) > 0
 
     def cond(c):
         _, _, ok_c, tries = c
-        unresolved = need * (1.0 - ok_c)
-        return (tries < lambda_max_tries) & (jnp.max(unresolved) > 0.5)
+        return (tries < lambda_max_tries) & unresolved(ok_c)
 
     def body(c):
-        L_c, lam_c, ok_c, tries = c
-        fail = need * (1.0 - ok_c)
-        esc = jnp.where(lam_c == 0.0,
-                        jnp.asarray(lambda_initial, dt), lam_c * 10.0)
-        lam_n = jnp.where(fail > 0.5, esc, lam_c)
-        L_n, ok_n = factor(lam_n)
-        return L_n, lam_n, _conc(ok_n, lam_n), tries + 1
+        _, lam_c, ok_c, tries = c
+        esc = jnp.where(lam_c == 0.0, np.asarray(lambda_initial, dt),
+                        lam_c * 10.0)
+        lam_n = jnp.where(need & ~ok_c, esc, lam_c)
+        Lf_n, ok_n = factor(lam_n)
+        return Lf_n, lam_n, ok_n, tries + 1
 
-    L, lam, ok, _ = jax.lax.while_loop(
-        cond, body, (L, lam, ok, jnp.asarray(0, jnp.int32)))
-    step = -_cho_solve_minor(L, g)
-    n2 = _conc(jnp.sum(step * step, axis=0, keepdims=True), lam)
-    fac_ok = jnp.minimum(ok + (1.0 - need), 1.0)
-    return step, n2, lam, fac_ok
+    Lf, lam, ok, _ = jax.lax.while_loop(
+        cond, body, (Lf, lam, ok, jnp.asarray(0, jnp.int32)))
+    x = _cho_solve_lanes(unflat(Lf), g, n)
+    step = [-xi for xi in x]
+    return step, _dot_lanes(step, step), lam, ok | ~need
 
 
 # ---------------------------------------------------------------------------
@@ -180,140 +180,113 @@ def _gauss_newton_minor(JtJ, g, lam, need, *, lambda_initial,
 # ---------------------------------------------------------------------------
 
 
-def _make_kernel(products_minor: Callable, n: int, n_data: int,
-                 n_shared: int, prm: DoglegParameters,
-                 _debug_attempts: int = 0,
-                 _debug_freeze: tuple = ()):
-    """Build the kernel body. products_minor(p (n, bt), *data_tiles,
-    *shared) -> (norm2 (1, bt), Jt_x (n, bt), JtJ (n, n, bt))."""
+def _make_kernel(products: Callable, n: int, n_in: int,
+                 prm: DoglegParameters):
+    """Build the kernel body over refs (data..., shared..., p0, p, Jt_x,
+    JtJ, fscal, iscal); n_in counts the data and shared refs."""
     max_attempts = prm.resolved_max_attempts()
     R = StopReason
 
     def kernel(*refs):
-        data_refs = refs[:n_data + n_shared]
+        data_refs = refs[:n_in]
         p0_ref, p_ref, jtx_ref, jtj_ref, fscal_ref, iscal_ref = \
-            refs[n_data + n_shared:]
+            refs[n_in:]
         dt = p0_ref.dtype
-        data = tuple(r[:] for r in data_refs)
 
         def f(v):
-            return jnp.asarray(v, dt)
+            return np.asarray(v, dt)
 
-        def products(p):
-            return products_minor(p, *data)
+        def eval_products(p):
+            n2, jtx, jtj = products(list(p), *data_refs)
+            return (n2, list(jtx),
+                    [jtj[i][j] for i in range(n) for j in range(i + 1)])
 
-        p0 = p0_ref[:]
-        anchor0 = p0[0:1]   # concrete-layout (1, bt) row for _conc
+        def unflat(flat):
+            it = iter(flat)
+            return [[next(it) for _ in range(i + 1)] for i in range(n)]
 
         def grad_converged(g):
-            return (_conc(jnp.max(jnp.abs(g), axis=0, keepdims=True),
-                          anchor0)
-                    <= f(prm.Jt_x_threshold))
+            return _max_abs_lanes(g) <= f(prm.Jt_x_threshold)
 
-        norm2_0, jtx_0, jtj_0 = products(p0)
-        norm2_0 = _conc(norm2_0, anchor0)
-        zero = anchor0 * f(0.0)   # concrete zero row (splat inits can
-        #                           mismatch the body layout in a carry)
-        one = zero + f(1.0)
-
+        p0 = [p0_ref[i] for i in range(n)]
+        norm2_0, jtx_0, jtj_0 = eval_products(p0)
+        zero = jnp.zeros_like(p0[0])
+        izero = jnp.zeros(zero.shape, jnp.int32)
+        false = zero != zero
         conv0 = grad_converged(jtx_0)
-        reason0 = jnp.where(conv0, f(int(R.GRADIENT_CONVERGED)),
-                            f(int(R.RUNNING)))
-        zvec = jnp.zeros_like(p0)
+        reason0 = jnp.where(conv0, int(R.GRADIENT_CONVERGED),
+                            int(R.RUNNING)).astype(jnp.int32)
 
-        # carry: p, norm2, Jt_x, JtJ, cauchy, n2_cauchy, have_cauchy,
-        #        gn, n2_gn, have_gn, lam, tr, step_count, n_attempts,
-        #        done, reason — per-lane flags AND counters/reasons are
-        #        f32 rows (exact for these small ints): i1 vector loop
-        #        carries crash Mosaic lowering (ops/pallas_blockchol.py
-        #        pitfall list), and MIXING an int32 row with an f32 row
-        #        in the while carry trips a Mosaic layout-join fault
-        #        ("Not implemented: Sublane broadcast" — minimal repro:
-        #        n_attempts int32 + done f32 live, everything else
-        #        frozen; see BENCH_NOTES_r04.md). int32 results are cast
-        #        at the output store only.
+        # carry: p, norm2, Jt_x, JtJ (lower), cauchy, n2_cauchy,
+        # have_cauchy, gn, n2_gn, have_gn, lam, tr, step_count,
+        # n_attempts, done, reason
         carry0 = (p0, norm2_0, jtx_0, jtj_0,
-                  zvec, zero, zero,
-                  zvec, zero, zero,
-                  zero, one * f(prm.trustregion0),
-                  zero, zero, conv0.astype(dt), reason0)
+                  [zero] * n, zero, false,
+                  [zero] * n, zero, false,
+                  zero, zero + f(prm.trustregion0),
+                  izero, izero, conv0, reason0)
 
         def attempt(c):
-            (p, norm2, jtx, jtj, cauchy, n2_cauchy, have_cauchy,
+            (p, norm2, jtx, jtj_f, cauchy, n2_cauchy, have_cauchy,
              gn, n2_gn, have_gn, lam, tr, step_count, n_attempts,
              done, reason) = c
+            jtj = unflat(jtj_f)
             tr_sq = tr * tr
 
             # --- Cauchy step, cached per operating point
             # (reference dogleg.c:529-617)
-            n2_jtx = _conc(jnp.sum(jtx * jtx, axis=0, keepdims=True),
-                           tr)
-            k_c = -n2_jtx / _quad_form_minor(jtj, jtx)
-            cached_c = have_cauchy > 0.5
-            cauchy = jnp.where(cached_c, cauchy, k_c * jtx)
-            n2_cauchy = jnp.where(cached_c, n2_cauchy,
+            n2_jtx = _dot_lanes(jtx, jtx)
+            k_c = -n2_jtx / _quad_form_lanes(jtj, jtx, n)
+            cauchy = [jnp.where(have_cauchy, ci, k_c * gi)
+                      for ci, gi in zip(cauchy, jtx)]
+            n2_cauchy = jnp.where(have_cauchy, n2_cauchy,
                                   k_c * k_c * n2_jtx)
-
-            use_cauchy = n2_cauchy >= tr_sq           # (1, bt) bool
+            use_cauchy = n2_cauchy >= tr_sq
 
             # --- GN step, masked escalating lambda
             # (reference dogleg.c:822-908, 670-676)
-            need_gn = ((~use_cauchy) & (have_gn < 0.5)).astype(dt)
-            gn_f, n2_gn_f, lam_f, fac_ok_f = _gauss_newton_minor(
-                jtj, jtx, lam, need_gn,
+            need_gn = ~use_cauchy & ~have_gn
+            gn_f, n2_gn_f, lam_f, fac_ok_f = _gauss_newton_lanes(
+                jtj, jtx, lam, need_gn, n,
                 lambda_initial=prm.lambda_initial,
                 lambda_max_tries=prm.lambda_max_tries)
-            sel = need_gn > 0.5
-            gn = jnp.where(sel, gn_f, gn)
-            n2_gn = jnp.where(sel, n2_gn_f, n2_gn)
-            lam = jnp.where(sel, lam_f, lam)
-            # fac_ok stays an f32 0/1 row: a bool-vector where OPERAND
-            # lowers as an i8->i1 arith.trunci, which Mosaic rejects
-            # ("Unsupported target bitwidth for truncation") — same
-            # family as the i1-carry pitfall in ops/pallas_blockchol.py
-            fac_ok = jnp.where(sel, fac_ok_f, jnp.ones_like(fac_ok_f))
-            have_gn = jnp.minimum(have_gn + need_gn, 1.0)
+            gn = [jnp.where(need_gn, a, b) for a, b in zip(gn_f, gn)]
+            n2_gn = jnp.where(need_gn, n2_gn_f, n2_gn)
+            lam = jnp.where(need_gn, lam_f, lam)
+            fac_ok = fac_ok_f
+            have_gn = have_gn | need_gn
 
             # --- step selection (reference dogleg.c:1172-1297)
-            use_gn = (~use_cauchy) & (n2_gn <= tr_sq)
-            d = cauchy - gn
-            l2 = jnp.sum(d * d, axis=0, keepdims=True)
-            neg_c = jnp.sum(d * cauchy, axis=0, keepdims=True)
-            disc = jnp.maximum(neg_c * neg_c
-                               - l2 * (n2_cauchy - tr_sq), 0.0)
+            use_gn = ~use_cauchy & (n2_gn <= tr_sq)
+            d = [ci - gi for ci, gi in zip(cauchy, gn)]
+            l2 = _dot_lanes(d, d)
+            neg_c = _dot_lanes(d, cauchy)
+            disc = jnp.maximum(neg_c * neg_c - l2 * (n2_cauchy - tr_sq),
+                               0.0)
             k_i = (neg_c + jnp.sqrt(disc)) / l2
-            interp = cauchy + k_i * (gn - cauchy)
-            n2_interp = jnp.sum(interp * interp, axis=0, keepdims=True)
+            interp = [ci + k_i * (gi - ci) for ci, gi in zip(cauchy, gn)]
 
             inv_clen = tr / jnp.sqrt(n2_cauchy)
-            step = jnp.where(use_cauchy, inv_clen * cauchy,
-                             jnp.where(use_gn, gn, interp))
-            # truncated-Cauchy records the UNCLAMPED norm2
-            # (reference dogleg.c:1200 quirk, kept for trace parity)
-            norm2_step = jnp.where(use_cauchy, n2_cauchy,
-                                   jnp.where(use_gn, n2_gn, n2_interp))
-            del norm2_step  # diagnostics-only (no history in-kernel)
+            step = [jnp.where(use_cauchy, inv_clen * ci,
+                              jnp.where(use_gn, gi, ii))
+                    for ci, gi, ii in zip(cauchy, gn, interp)]
             stepped_to_edge = ~use_gn
 
-            expected = (-2.0 * jnp.sum(jtx * step, axis=0,
-                                       keepdims=True)
-                        - _quad_form_minor(jtj, step))
+            expected = (-2.0 * _dot_lanes(jtx, step)
+                        - _quad_form_lanes(jtj, step, n))
 
             # --- criterion 2 (reference dogleg.c:1287-1296)
-            small_step = (_conc(jnp.max(jnp.abs(step), axis=0,
-                                        keepdims=True), tr)
-                          <= f(prm.update_threshold))
+            small_step = _max_abs_lanes(step) <= f(prm.update_threshold)
 
-            # --- trial evaluation (reference dogleg.c:1411); masked
-            # out below for small-step/failed lanes like the solver's
+            # --- trial evaluation (reference dogleg.c:1411); masked out
+            # below for small-step/failed lanes like the solver's
             # lax.cond-under-vmap select
-            p_new = p + step
-            norm2_t, jtx_t, jtj_t = products(p_new)
-            norm2_t = _conc(norm2_t, tr)
-            sk = small_step | (fac_ok < 0.5)
+            p_new = [a + b for a, b in zip(p, step)]
+            norm2_t, jtx_t, jtj_t = eval_products(p_new)
+            sk = small_step | ~fac_ok
             norm2_t = jnp.where(sk, norm2, norm2_t)
-            jtx_t = jnp.where(sk, jtx, jtx_t)
-            jtj_t = jnp.where(sk[None], jtj, jtj_t)
+            jtx_t = [jnp.where(sk, a, b) for a, b in zip(jtx, jtx_t)]
+            jtj_t = [jnp.where(sk, a, b) for a, b in zip(jtj_f, jtj_t)]
 
             observed = norm2 - norm2_t
             rho = observed / expected
@@ -331,133 +304,118 @@ def _make_kernel(products_minor: Callable, n: int, n_data: int,
                 decreased, increased)
 
             accept = rho > 0.0
-            n_attempts_new = n_attempts + 1.0    # f32 counter (see carry0)
+            n_attempts_new = n_attempts + 1
             exhausted = n_attempts_new >= max_attempts
-            step_count_acc = step_count + 1.0
+            step_count_acc = step_count + 1
 
             conv_t = grad_converged(jtx_t)
             max_iters = step_count_acc >= prm.max_iterations
             acc_done = conv_t | max_iters | exhausted
             acc_reason = jnp.where(
-                conv_t, f(int(R.GRADIENT_CONVERGED)),
-                jnp.where(max_iters, f(int(R.MAX_ITERATIONS)),
-                          jnp.where(exhausted, f(int(R.STALLED)),
-                                    f(int(R.RUNNING)))))
+                conv_t, int(R.GRADIENT_CONVERGED),
+                jnp.where(max_iters, int(R.MAX_ITERATIONS),
+                          jnp.where(exhausted, int(R.STALLED),
+                                    int(R.RUNNING))))
             rej_small_tr = tr_new < f(prm.trustregion_threshold)
             rej_done = rej_small_tr | exhausted
             rej_reason = jnp.where(
-                rej_small_tr, f(int(R.SMALL_TRUSTREGION)),
-                jnp.where(exhausted, f(int(R.STALLED)),
-                          f(int(R.RUNNING))))
+                rej_small_tr, int(R.SMALL_TRUSTREGION),
+                jnp.where(exhausted, int(R.STALLED), int(R.RUNNING)))
 
             # --- path combination, matching solver.py's nested
             # tree_where(~fac_ok, failed, where(small_step, small,
             # where(accept, accepted, rejected)))
-            fok = fac_ok > 0.5
-            m_fail = ~fok
-            m_small = fok & small_step
-            m_acc = fok & (~small_step) & accept
-            m_keep_tr = m_fail | m_small     # small/failed keep radius
+            m_fail = ~fac_ok
+            m_small = fac_ok & small_step
+            m_acc = fac_ok & ~small_step & accept
+            m_keep_tr = m_fail | m_small
+
+            def acc(new, old):
+                return jnp.where(m_acc, new, old)
 
             out = (
-                jnp.where(m_acc, p_new, p),
-                jnp.where(m_acc, norm2_t, norm2),
-                jnp.where(m_acc, jtx_t, jtx),
-                jnp.where(m_acc[None], jtj_t, jtj),
+                [acc(a, b) for a, b in zip(p_new, p)],
+                acc(norm2_t, norm2),
+                [acc(a, b) for a, b in zip(jtx_t, jtx)],
+                [acc(a, b) for a, b in zip(jtj_t, jtj_f)],
                 cauchy,
                 n2_cauchy,
-                jnp.where(m_acc, 0.0, 1.0).astype(dt),
+                ~m_acc,
                 gn,
                 n2_gn,
-                jnp.where(m_acc, 0.0, have_gn).astype(dt),
+                have_gn & ~m_acc,
                 lam,
                 jnp.where(m_keep_tr, tr, tr_new),
-                jnp.where(m_acc, step_count_acc, step_count),
+                acc(step_count_acc, step_count),
                 n_attempts_new,
+                m_fail | m_small | jnp.where(m_acc, acc_done, rej_done),
                 jnp.where(
-                    m_fail | m_small, 1.0,
-                    # bool where-OPERANDS are a Mosaic trunci fault:
-                    # cast to f32 0/1 first
-                    jnp.where(m_acc, acc_done.astype(dt),
-                              rej_done.astype(dt))),
-                jnp.where(
-                    m_fail,
-                    jnp.full_like(reason,
-                                  float(int(R.FACTORIZATION_FAILED))),
-                    jnp.where(
-                        m_small,
-                        jnp.full_like(reason, float(int(R.SMALL_STEP))),
-                        jnp.where(m_acc, acc_reason, rej_reason))),
+                    m_fail, int(R.FACTORIZATION_FAILED),
+                    jnp.where(m_small, int(R.SMALL_STEP),
+                              jnp.where(m_acc, acc_reason,
+                                        rej_reason))).astype(jnp.int32),
             )
-            if _debug_freeze:  # Mosaic-bisect: passthrough these leaves
-                out = tuple(old if i in _debug_freeze else new
-                            for i, (old, new) in enumerate(zip(c, out)))
             # freeze terminated lanes
-            dm = done > 0.5
-            return tuple(
-                jnp.where(dm[None] if old.ndim == 3 else dm, old, new)
-                for old, new in zip(c, out))
+            return jax.tree_util.tree_map(
+                lambda old, new: jnp.where(done, old, new), c, out)
 
-        if _debug_attempts:   # Mosaic-bisect mode: unrolled, no while
-            final = carry0
-            for _ in range(_debug_attempts):
-                final = attempt(final)
-        else:
-            final = jax.lax.while_loop(
-                lambda c: jnp.min(c[14]) < 0.5, attempt, carry0)
-        (p, norm2, jtx, jtj, _, _, _, _, _, _, lam, tr,
+        def running(c):
+            return jnp.min(c[14].astype(jnp.int32)) == 0
+
+        final = jax.lax.while_loop(running, attempt, carry0)
+        (p, norm2, jtx, jtj_f, _, _, _, _, _, _, lam, tr,
          step_count, n_attempts, _, reason) = final
-
-        p_ref[:] = p
-        jtx_ref[:] = jtx
-        jtj_ref[:] = jtj.reshape(n * n, jtj.shape[-1])
-        fscal_ref[:] = jnp.concatenate([norm2, tr, lam], axis=0)
-        iscal_ref[:] = jnp.concatenate(
-            [step_count, n_attempts, reason], axis=0).astype(jnp.int32)
+        jtj = unflat(jtj_f)
+        for i in range(n):
+            p_ref[i] = p[i]
+            jtx_ref[i] = jtx[i]
+            for j in range(n):
+                jtj_ref[i * n + j] = jtj[max(i, j)][min(i, j)]
+        for r, v in enumerate((norm2, tr, lam)):
+            fscal_ref[r] = v
+        for r, v in enumerate((step_count, n_attempts, reason)):
+            iscal_ref[r] = v
 
     return kernel
 
 
-def megakernel_optimize(products_minor: Callable,
+def megakernel_optimize(products: Callable,
                         p0_batch: jnp.ndarray,
                         parameters: Optional[DoglegParameters] = None,
                         *,
                         problem_data=(),
                         shared_data=(),
-                        block_batch: int = 128,
+                        block_batch: int = DEFAULT_BLOCK_BATCH,
                         mesh=None,
                         axis_name: str = "dp",
-                        interpret: bool = False,
-                        _debug_attempts: int = 0,
-                        _debug_freeze: tuple = ()) -> SolveResult:
+                        interpret: bool = False) -> SolveResult:
     """Solve a batch of small dense problems in one whole-solve kernel.
 
     Args:
-      products_minor: batch-MINOR products function
-        (p (n, bt), *data_tiles (..., bt), *shared) ->
-        (norm2 (1, bt), Jt_x (n, bt), JtJ (n, n, bt)), built from jnp
-        ops only (it is traced inside the kernel). The batch-minor
-        analog of the (p, data) -> Products callback. Array constants
-        the products need (sampling grids, design matrices) must come
-        in through shared_data — Pallas kernels cannot capture array
-        constants.
+      products: lane-form products function (module docstring),
+        ``(p lanes, *data, *shared) -> (norm2, Jt_x lanes, JtJ lower
+        lanes)``.
       p0_batch: (B, n) initial states, batch-leading like every other
         entry point. B must be a multiple of block_batch.
-      problem_data: tuple of per-element arrays, leading batch axis.
-      shared_data: tuple of batch-independent arrays, passed to every
-        grid program whole (replicated reads; keep them small).
-      block_batch: problems per grid program (the lane-tile width).
+      problem_data: tuple of per-element arrays with a leading batch
+        axis. Inside the kernel, element k of the tuple is a ref whose
+        row r is the lane vector of flattened per-element entry r.
+      shared_data: tuple of 2-D arrays common to every problem, passed
+        whole to every grid program (keep them small).
+      block_batch: problems per grid program (the lane-tile width, a
+        power of two).
       mesh/axis_name: if given, shard the batch over this mesh axis via
-        shard_map — each device runs the kernel on its local batch
-        slice (solves are independent; zero communication). B must be
-        divisible by (mesh size x block_batch). shared_data is
-        replicated.
-      interpret: run in the Pallas interpreter (CPU test mode).
+        shard_map: each device runs the kernel on its local batch slice
+        (solves are independent; zero communication). B must be
+        divisible by (mesh size x block_batch).
+      interpret: run in the Pallas interpreter (CPU tests).
 
     Returns a SolveResult (history=None) with batch-leading leaves.
     """
     prm = parameters if parameters is not None else DoglegParameters()
     B, n = p0_batch.shape
+    if block_batch & (block_batch - 1):
+        raise ValueError(f"block_batch {block_batch} is not a power of two")
 
     if mesh is not None:
         from jax import shard_map
@@ -465,7 +423,7 @@ def megakernel_optimize(products_minor: Callable,
 
         def local_solve(p0_l, *data_l):
             return megakernel_optimize(
-                products_minor, p0_l, prm, problem_data=data_l,
+                products, p0_l, prm, problem_data=data_l,
                 shared_data=shared_data, block_batch=block_batch,
                 interpret=interpret)
 
@@ -486,29 +444,20 @@ def megakernel_optimize(products_minor: Callable,
         raise ValueError(f"batch {B} not divisible by block_batch "
                          f"{block_batch}")
     dt = p0_batch.dtype
-    grid = (B // block_batch,)
     bt = block_batch
 
-    data_minor = tuple(jnp.moveaxis(jnp.asarray(d), 0, -1)
-                       for d in problem_data)
-    shared = tuple(jnp.asarray(s) for s in shared_data)
+    # per-element data -> (rows, B): row r is flattened entry r
+    data_rows = tuple(jnp.asarray(d).reshape(B, -1).T for d in problem_data)
 
-    def tile_spec(shape_prefix):
-        nd = len(shape_prefix)
-        return pl.BlockSpec(tuple(shape_prefix) + (bt,),
-                            lambda i, _nd=nd: (0,) * _nd + (i,),
-                            memory_space=pltpu.VMEM)
+    def tile_spec(rows):
+        return pl.BlockSpec((rows, bt), lambda i: (0, i))
 
-    def shared_spec(s):
-        nd = s.ndim
-        return pl.BlockSpec(s.shape, lambda i, _nd=nd: (0,) * _nd,
-                            memory_space=pltpu.VMEM)
-
-    in_specs = ([tile_spec(d.shape[:-1]) for d in data_minor]
-                + [shared_spec(s) for s in shared]
-                + [tile_spec((n,))])
-    out_specs = (tile_spec((n,)), tile_spec((n,)),
-                 tile_spec((n * n,)), tile_spec((3,)), tile_spec((3,)))
+    shared = tuple(jnp.asarray(a) for a in shared_data)
+    in_specs = ([tile_spec(d.shape[0]) for d in data_rows]
+                + [pl.BlockSpec(a.shape, lambda i: (0, 0)) for a in shared]
+                + [tile_spec(n)])
+    out_specs = (tile_spec(n), tile_spec(n), tile_spec(n * n),
+                 tile_spec(3), tile_spec(3))
     out_shape = (
         jax.ShapeDtypeStruct((n, B), dt),
         jax.ShapeDtypeStruct((n, B), dt),
@@ -516,17 +465,19 @@ def megakernel_optimize(products_minor: Callable,
         jax.ShapeDtypeStruct((3, B), dt),
         jax.ShapeDtypeStruct((3, B), jnp.int32),
     )
-    kernel = _make_kernel(products_minor, n, len(data_minor),
-                          len(shared), prm, _debug_attempts,
-                          _debug_freeze)
+    kernel = _make_kernel(products, n, len(data_rows) + len(shared), prm)
     p_m, jtx_m, jtj_m, fscal, iscal = pl.pallas_call(
         kernel,
-        grid=grid,
+        grid=(B // bt,),
         in_specs=in_specs,
         out_specs=out_specs,
         out_shape=out_shape,
+        backend="triton",
+        compiler_params=pltriton.CompilerParams(num_warps=NUM_WARPS,
+                                                num_stages=1),
         interpret=interpret,
-    )(*data_minor, *shared, p0_batch.T)
+        name="dogleg_megakernel",
+    )(*data_rows, *shared, p0_batch.T)
 
     return SolveResult(
         p=p_m.T,

@@ -4,11 +4,11 @@ For the batched-trust-region configuration (thousands of independent small
 problems vmapped into one program, BASELINE.md config 3), the Gauss-Newton
 solve is a batch of tiny (Nstate x Nstate) SPD systems. XLA's
 lax.linalg.cholesky/triangular_solve lower through a column-loop expansion
-that costs ~700ns/system inside the solver's while_loop on TPU; fully
-unrolling the factorization and substitutions at trace time (N is static)
-turns the whole solve into a flat DAG of elementwise VPU ops that fuses with
-the surrounding iteration — measured ~3.3x faster on a v5e chip and exact to
-dtype eps.
+that is slow inside the solver's while_loop; fully unrolling the
+factorization and substitutions at trace time (N is static) turns the whole
+solve into a flat DAG of elementwise ops that fuses with the surrounding
+iteration, exact to dtype eps. Its speed against lax.linalg on the GPU is
+not measured yet (ROADMAP C4).
 
 Used automatically by DenseNewtonSolver/factorize paths when N <= SMALL_N_MAX;
 the blocked lax.linalg path remains for larger systems. (The reference's

@@ -123,7 +123,7 @@ def nd_ordering(rows: np.ndarray, cols: np.ndarray, n: int) -> np.ndarray:
     elimination-tree-HEIGHT-minimizing companion to the level-scheduled
     factorization (sparse_cholesky). Minimum degree and RCM minimize fill
     and bandwidth but leave chain-like quotient graphs with O(n)
-    sequential elimination levels; on a TPU the factorization's cost is
+    sequential elimination levels; on an accelerator the factorization's cost is
     the level COUNT (each level is one batched dispatch), so a log-depth
     tree is worth modest extra fill. Halves are eliminated first
     (recursively), the separator last: perm = [A..., B..., sep...].

@@ -87,11 +87,10 @@ def _auto_newton(products_fn, p0_batch, problem_data):
 def _try_megakernel(products_fn, p0_batch, prm, *, mesh, axis_name,
                     problem_data, newton_solver, record_history,
                     use_megakernel):
-    """Shared auto-promotion gate: returns a SolveResult when the
-    whole-solve Pallas megakernel took the batch, else None."""
-    from libdogleg_tpu.parallel.mega_auto import (_env_disabled,
-                                                  plan_megakernel)
-    if use_megakernel is False or _env_disabled():
+    """Shared selection gate: returns a SolveResult when the whole-solve
+    megakernel took the batch, else None (parallel/mega_auto.py)."""
+    from libdogleg_tpu.parallel.mega_auto import plan_megakernel
+    if use_megakernel is False:
         return None
     forced = bool(use_megakernel)
     if record_history or newton_solver is not None:
@@ -103,19 +102,7 @@ def _try_megakernel(products_fn, p0_batch, prm, *, mesh, axis_name,
     plan = plan_megakernel(products_fn, p0_batch, prm,
                            problem_data=problem_data, mesh=mesh,
                            axis_name=axis_name, forced=forced)
-    if plan is None:
-        if forced:
-            raise ValueError(
-                "use_megakernel=True but the problem is outside the "
-                "megakernel regime (needs a single (B, n<=16) f32 state "
-                "batch and a dense JtJ)")
-        return None
-    try:
-        return plan()
-    except Exception:
-        if forced:
-            raise
-        return None  # Mosaic lowering/compile fault: XLA path takes it
+    return None if plan is None else plan()
 
 
 def batched_optimize(products_fn,
@@ -147,12 +134,9 @@ def batched_optimize(products_fn,
         BlockedDenseNewtonSolver for dense mid-size JtJ (see _auto_newton);
         pass DenseNewtonSolver() to force the XLA lax.linalg path.
       layout: "leading" (default) vmaps over axis 0, so every solver-carry
-        tensor is (B, ...) — on TPU the trailing (n,)/(n, n) dims of small
-        problems then pad to the physical (8, 128) tile, inflating the
-        per-attempt HBM carry round-trip up to ~20x for Nstate=6.
-        "minor" moves the batch axis to the MINOR dimension inside the
+        tensor is (B, ...). "minor" moves the batch axis to the MINOR dimension inside the
         jitted region (one transpose at entry/exit; carries become
-        (..., B), which tiles compactly for large B). The public
+        (..., B)). The public
         interface is unchanged: inputs and results are batch-leading
         either way. Exactness: same program order per element, tested
         identical. Composes with mesh= (the transpose happens inside the
@@ -164,16 +148,22 @@ def batched_optimize(products_fn,
         production batched path.
       wavefront_unroll: attempts composed per while_loop wavefront
         (exact — the body freezes done lanes). See solver.run_solver.
-      use_megakernel: None (default) auto-selects the whole-solve Pallas
-        megakernel (ops/pallas_mega.py; ~10x the XLA path on the
-        benchmark workload) when the problem fits its regime — TPU
-        backend, (B >= 1024, n <= 16) f32 states, dense JtJ, no
-        history/custom strategy — with an ahead-of-time compile probe
-        and automatic fallback to the XLA path on any lowering fault.
-        True forces it (interpret-mode on non-TPU backends, errors
-        instead of falling back); False disables. The megakernel is
-        exact-decision identical to the XLA path (tested); layout and
-        wavefront_unroll are XLA-path tuning knobs it ignores.
+      use_megakernel: None (default) selects the whole-solve Pallas
+        megakernel (ops/pallas_mega.py) when the problem fits its
+        regime: GPU backend, (B, n <= 16) f32 states, dense
+        JtJ, no history/custom strategy, products the lane interpreter
+        covers (parallel/mega_auto.py). The regime is checked before
+        anything compiles; a compile fault of the chosen kernel raises.
+        True forces it (ValueError outside the regime); False disables
+        it. The megakernel computes every
+        product in float32, whatever precision the products' matrix
+        products ask for, and is then decision-identical to the XLA path
+        up to roundoff (tested at Precision.HIGHEST). At JAX's default
+        precision the GPU's XLA path forms them in TF32, and the two
+        agree on step_count for about two thirds of the instances of the
+        sample problem (PERF.md; the precision policy is ROADMAP A7).
+        layout and wavefront_unroll are XLA-path tuning knobs it
+        ignores.
 
     Returns a SolveResult whose leaves carry the leading batch axis.
     """

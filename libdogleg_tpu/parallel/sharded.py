@@ -1,6 +1,6 @@
 """Measurement-axis (row-block) sharding of the Jacobian.
 
-The TPU-native answer to the reference's sparse-scaling story (SURVEY.md
+This library's answer to the reference's sparse-scaling story (SURVEY.md
 sections 2.2 and 5.7): the products the solver consumes — norm2(x), J^T x,
 J^T J — are all *sums over the measurement axis*, so partitioning measurement
 row blocks across devices and psum-ing the per-device partial products is

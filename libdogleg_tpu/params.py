@@ -8,7 +8,7 @@ set and a reentrant per-call struct (dogleg.h:108-111); here there are no
 globals — parameters are an immutable dataclass passed per solve.
 
 The packed-triangle storage flags (JtJ_packed/JtJ_upper, dogleg.h:121-132) are
-a CPU-cache/LAPACK idiom and are not solver parameters on TPU: JtJ is always a
+a CPU-cache/LAPACK idiom and are not solver parameters here: JtJ is always a
 full symmetric matrix. Packed<->full converters live in
 libdogleg_tpu.utils.packed for API-parity testing.
 """
@@ -64,7 +64,7 @@ class DoglegParameters:
     update_threshold: float = 1e-8
     trustregion_threshold: float = 1e-8
 
-    # TPU-framework-specific knobs (no reference equivalent; see docstring).
+    # Framework-specific knobs (no reference equivalent; see docstring).
     max_attempts: int = 0
     lambda_initial: float = 1e-10
     lambda_max_tries: int = 60

@@ -28,7 +28,59 @@ MODES = ("sparse", "dense", "dense-products-packed-upper",
          "dense-products-unpacked", "residual", "factored")
 
 
-def main(argv=None) -> int:
+def make_problem(mode: str, meas):
+    """The sample problem in one of MODES for these measurements."""
+    import libdogleg_tpu.sample_problem as sp
+    from libdogleg_tpu import ProductsProblem
+    from libdogleg_tpu.utils.packed import full_to_packed, packed_to_full
+
+    if mode == "sparse":
+        return sp.make_sparse_problem(meas)
+    if mode == "dense":
+        return sp.make_dense_problem(meas)
+    if mode == "residual":
+        return sp.make_residual_problem(meas)
+    if mode == "factored":
+        # sufficient-statistics formulation (FactoredBasisProblem): same
+        # optimum, per-attempt cost independent of the measurement count
+        return sp.make_factored_problem(meas)
+    # Exercise the packed-triangle API layouts end to end: the user
+    # callback produces packed JtJ; the adapter expands it
+    # (sample.c:165-237 exercises packed-upper and unpacked).
+    base = sp.make_products_problem(meas)
+    if not mode.endswith("packed-upper"):
+        return base
+
+    def f(p):
+        n2, jtx, jtj = base.f(p)
+        packed = full_to_packed(jtj, upper=True)
+        return n2, jtx, packed_to_full(packed, sp.NSTATE, upper=True)
+    return ProductsProblem(f=f)
+
+
+def check_result(result, max_iterations: int):
+    """The --check gate (sample.c:424-457): at most max_iterations
+    accepted steps and every parameter within 5e-2 of the truth.
+    Returns (ok, [(good, message), ...])."""
+    import numpy as np
+
+    import libdogleg_tpu.sample_problem as sp
+
+    if int(result.step_count) > max_iterations:
+        return False, [(False, "ERROR: the optimization did not converge")]
+    lines = [(True, "OK: the optimization converged to an optimum  "
+                    f"of norm2(x)={float(result.norm2_x):.1f}")]
+    for i, (pi, pref) in enumerate(zip(np.asarray(result.p), sp.P_TRUE)):
+        err = pi - pref
+        good = bool(abs(err) < 5e-2)
+        lines.append((good, f"{'OK' if good else 'ERROR'}: parameter {i} "
+                            f"{'recovered' if good else 'was NOT recovered'}"
+                            f": psolved={pi:.3f} pref={pref:.3f} "
+                            f"perr={err:.3f}"))
+    return all(g for g, _ in lines), lines
+
+
+def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="libdogleg_tpu.sample",
         description="libdogleg_tpu demo (the reference sample.c problem)")
@@ -39,10 +91,15 @@ def main(argv=None) -> int:
     ap.add_argument("--test-gradients", action="store_true",
                     help="print gradient-check tables and exit")
     ap.add_argument("--f32", action="store_true",
-                    help="solve in float32 (TPU-native) instead of float64")
-    ap.add_argument("--platform", choices=("cpu", "tpu"), default=None,
+                    help="solve in float32 instead of float64")
+    ap.add_argument("--platform", choices=("cpu", "gpu"), default=None,
                     help="force a jax platform (default: environment choice)")
     ap.add_argument("mode", choices=MODES)
+    return ap
+
+
+def main(argv=None) -> int:
+    ap = build_parser()
     args = ap.parse_args(argv)
 
     if args.check and args.test_gradients:
@@ -60,39 +117,14 @@ def main(argv=None) -> int:
     import numpy as np
 
     import libdogleg_tpu.sample_problem as sp
-    from libdogleg_tpu import DoglegParameters, ProductsProblem, optimize
+    from libdogleg_tpu import DoglegParameters, optimize
     from libdogleg_tpu.analysis import check_gradients, format_gradient_table
     from libdogleg_tpu.diagnostics import explain_result, print_vnlog
-    from libdogleg_tpu.utils.packed import full_to_packed, packed_to_full
 
     dtype = jnp.float32 if args.f32 else jnp.float64
     meas = sp.simulate(jax.random.PRNGKey(0), dtype=dtype)
     p0 = sp.initial_state(jax.random.PRNGKey(1), dtype=dtype)
-
-    if args.mode == "sparse":
-        problem = sp.make_sparse_problem(meas)
-    elif args.mode == "dense":
-        problem = sp.make_dense_problem(meas)
-    elif args.mode == "residual":
-        problem = sp.make_residual_problem(meas)
-    elif args.mode == "factored":
-        # sufficient-statistics formulation (FactoredBasisProblem): same
-        # optimum, per-attempt cost independent of the measurement count
-        problem = sp.make_factored_problem(meas)
-    else:
-        # Exercise the packed-triangle API layouts end to end: the user
-        # callback produces packed JtJ; the adapter expands it
-        # (sample.c:165-237 exercises packed-upper and unpacked).
-        upper = args.mode.endswith("packed-upper")
-        base = sp.make_products_problem(meas)
-        if upper:
-            def f(p):
-                n2, jtx, jtj = base.f(p)
-                packed = full_to_packed(jtj, upper=True)
-                return n2, jtx, packed_to_full(packed, sp.NSTATE, upper=True)
-            problem = ProductsProblem(f=f)
-        else:
-            problem = base
+    problem = make_problem(args.mode, meas)
 
     if not args.check:
         print(f"Using {args.mode} math", file=sys.stderr)
@@ -134,24 +166,10 @@ def main(argv=None) -> int:
     optimum = float(result.norm2_x)
 
     if args.check:
-        if int(result.step_count) > prm.max_iterations:
-            print(RED + "ERROR: the optimization did not converge" + RESET)
-            return 1
-        print(GREEN + "OK: the optimization converged to an optimum  "
-              f"of norm2(x)={optimum:.1f}" + RESET)
-        anyfailed = False
-        for i, (pi, pref) in enumerate(zip(np.asarray(result.p), sp.P_TRUE)):
-            err = pi - pref
-            if abs(err) < 5e-2:
-                print(GREEN + f"OK: parameter {i} recovered: "
-                      f"psolved={pi:.3f} pref={pref:.3f} perr={err:.3f}"
-                      + RESET)
-            else:
-                print(RED + f"ERROR: parameter {i} was NOT recovered: "
-                      f"psolved={pi:.3f} pref={pref:.3f} perr={err:.3f}"
-                      + RESET)
-                anyfailed = True
-        return 1 if anyfailed else 0
+        ok, lines = check_result(result, prm.max_iterations)
+        for good, line in lines:
+            print((GREEN if good else RED) + line + RESET)
+        return 0 if ok else 1
 
     print(f"Done. Optimum = {optimum:f}", file=sys.stderr)
     print("optimal state:", file=sys.stderr)

@@ -10,7 +10,7 @@ from libdogleg_tpu.models.quadratic_surface import (  # noqa: F401
     NSTATE,
     P_TRUE,
     factored_products,
-    factored_products_minor,
+    factored_products_lanes,
     factored_statistics,
     gram_pair,
     initial_state,
@@ -22,7 +22,7 @@ from libdogleg_tpu.models.quadratic_surface import (  # noqa: F401
     make_residual_problem,
     make_sparse_problem,
     model,
-    products_minor,
+    products_lanes,
     residuals,
     simulate,
 )

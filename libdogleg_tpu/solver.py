@@ -1,6 +1,6 @@
 """Powell's dog-leg trust-region driver as a jitted fixed-point iteration.
 
-This is the TPU-native counterpart of the reference's runOptimizer /
+This is the counterpart of the reference's runOptimizer /
 takeStepFrom / evaluateStep_adjustTrustRegion machinery (reference
 dogleg.c:1172-1476). The reference drives the iteration with nested C loops,
 two malloc'd operating points swapped by pointer on accept (dogleg.c:1441-1444)
@@ -289,7 +289,7 @@ def run_solver(products_fn: ProductsFn,
     max_new_attempts the attempt budget is rounded up to a multiple of
     k. Purpose: amortize the batched carry's HBM round-trip + wavefront
     dispatch over k attempts where XLA can fuse across the chained
-    bodies (docs/ROOFLINE.md, measured by exp_roofline.py)."""
+    bodies."""
     prm = parameters if parameters is not None else DoglegParameters()
     ns = newton_solver if newton_solver is not None else DenseNewtonSolver()
     max_attempts = prm.resolved_max_attempts()

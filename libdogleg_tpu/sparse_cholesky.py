@@ -1,10 +1,11 @@
-"""Block-sparse Cholesky: the TPU-native replacement for CHOLMOD.
+"""Block-sparse Cholesky: this library's replacement for CHOLMOD.
 
 The reference factors sparse JtJ with CHOLMOD's simplicial Cholesky
 (supernodal disabled for license purity at a 25% speed cost, reference
 dogleg.c:1595-1599), with a one-time symbolic analysis (dogleg.c:649-654).
-A TPU has no sparse direct solver; this module builds one from the two
-primitives a TPU is good at — batched dense block ops and static schedules:
+XLA has no sparse direct solver; this module builds one from the two
+primitives an accelerator is good at — batched dense block ops and static
+schedules:
 
   symbolic (host, once per pattern):
     * a fill-reducing minimum-degree ordering (libdogleg_tpu.ordering — the
@@ -27,7 +28,7 @@ primitives a TPU is good at — batched dense block ops and static schedules:
 Failure (non-SPD pivot) is detected per FACTOR op and or-reduced, feeding
 the same permanent escalating-lambda loop as the dense path (reference
 dogleg.c:670-676). Works for any uniform block size b >= 1 (b == 1 is a
-scalar simplicial factorization, CHOLMOD's regime; b in MXU-tile sizes is
+scalar simplicial factorization, CHOLMOD's regime; b in matrix-tile sizes is
 the supernodal-style regime).
 
 Why the numeric factorization is deliberately SINGLE-DEVICE (round-2
@@ -38,9 +39,9 @@ nstate=32768: 511 levels, mean 3.4 / p90 10 / max 10 update ops per level.
 Sharding a width-<=10 batch of 128-wide block ops over a mesh leaves <=2
 ops per device and inserts a collective (or a resharding of gathered
 slots) into EVERY one of the ~500 SEQUENTIAL levels; per-level compute
-(~10 blocks x 2*128^3 flops ~ microseconds at MXU rate) is the same order
-as one ICI collective's latency, so the mesh would at best break even and
-on DCN would lose outright. The factorization's bottleneck is the
+(~10 blocks x 2*128^3 flops ~ microseconds at matrix-unit rate) is the
+same order as one collective's latency, so the mesh would at best break
+even. The factorization's bottleneck is the
 elimination-tree critical path (level COUNT), which no data sharding
 shortens. The distributed answer for huge nstate is structural
 decomposition instead — Schur elimination over pytree states with the
@@ -52,9 +53,7 @@ Two batched-factorization swap attempts are also recorded: replacing the
 per-level lax.linalg block ops with ops/blockchol's unrolled panels never
 finished compiling inside the level scan (>15 min at super-block 128 AND
 64, vs ~80 s baseline — the unrolled DAG multiplies across the scan's
-gather/scatter structure), and the Pallas kernel form runs 18x slower
-than blockchol outside the scan (ops/pallas_blockchol.py VERDICT). The
-lax.linalg block ops stay.
+gather/scatter structure). The lax.linalg block ops stay.
 """
 
 from __future__ import annotations

@@ -2,7 +2,7 @@
 
 The reference performs symbolic analysis exactly once per problem via
 cholmod_analyze (reference dogleg.c:649-654) because "the pattern of zeros
-will remain the same throughout". The TPU-native equivalent is precomputing a
+will remain the same throughout". The equivalent here is precomputing a
 static block sparsity pattern on the host, which then parameterizes all jitted
 block-sparse kernels with static shapes. This module holds those host-side,
 numpy-only routines. (A C++ fast path for very large patterns lives in csrc/.)

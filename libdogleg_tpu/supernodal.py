@@ -3,7 +3,7 @@
 CHOLMOD's supernodal mode (which the reference disables for license purity
 at a measured 25% cost, reference dogleg.c:1595-1599) merges columns with
 similar structure into dense panels so the factorization runs on BLAS3. The
-TPU needs the same medicine more urgently: the level-scheduled simplicial
+An accelerator needs the same medicine more urgently: the level-scheduled simplicial
 factorization (sparse_cholesky) issues one batch of b-sized block ops per
 dependency level, and for small b the levels are dispatch-bound, not
 FLOP-bound.
@@ -14,7 +14,7 @@ super-column of size S*b. Any super-block containing a stored sub-block is
 stored whole (explicit zeros included — the fill-by-blocking trade). The
 result is the SAME matrix factored with the existing uniform-block
 machinery at block size S*b: levels shrink ~S-fold and each batched op
-grows S^2-fold onto the MXU. Exactness is preserved (the merged diagonal
+grows S^2-fold. Exactness is preserved (the merged diagonal
 supers are principal submatrices of the permuted JtJ, so SPD-ness and the
 factorization are those of the original matrix, padded with decoupled
 identity states when nb % S != 0).
@@ -71,9 +71,9 @@ def analyze(rows: np.ndarray, cols: np.ndarray, nb: int, b: int = 1,
 
     inner_ordering orders the SUPER pattern's elimination. RCM leaves the
     supers a (near-)chain — O(nb/S) sequential elimination levels, and on
-    a TPU the factorization cost is the level COUNT, not the flops (the
-    diag-coupled grid regime ran 511 levels of <=3 block ops each and
-    lost 2x to one CPU core, BENCH_CPU_REF_GRID_r04.json). "nd" re-orders
+    an accelerator the factorization cost is the level COUNT, not the
+    flops (the diag-coupled grid regime runs 511 levels of <=3 block ops
+    each). "nd" re-orders
     the supers by nested dissection, collapsing a chain to a log-depth
     elimination tree at modest extra fill. "auto" (default) analyzes both
     and keeps the schedule with fewer total sequential levels (ties to

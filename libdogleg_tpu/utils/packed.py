@@ -2,7 +2,7 @@
 
 The reference's dense-products mode accepts JtJ in LAPACK packed-triangle
 storage (row-first packed upper or lower, reference dogleg.h:121-132,
-dogleg.c:309-332). Packed storage is a CPU-cache idiom with no benefit on TPU
+dogleg.c:309-332). Packed storage is a CPU-cache idiom with no benefit on an accelerator
 — the solver always works on full symmetric matrices — but these converters
 provide API parity for users migrating packed-JtJ callbacks, and are used by
 the parity tests.

@@ -4,7 +4,7 @@ Launched by tests/test_multihost.py (not collected by pytest itself). Each
 process owns 2 virtual CPU devices; jax.distributed.initialize unifies them
 into a 4-device global mesh whose cross-process collectives ride Gloo — the
 same code path (jax.distributed + psum over a global mesh) that carries DCN
-traffic on real multi-host TPU pods (SURVEY.md section 5.8; the reference
+traffic on real multi-host clusters (SURVEY.md section 5.8; the reference
 has no distribution at all, SURVEY.md section 2.2).
 
 Three legs, each asserted against a process-local single-device reference:

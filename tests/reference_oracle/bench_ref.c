@@ -24,7 +24,7 @@
  *     int64 problem_id, int64 nstate, int64 nmeas, int64 n_instances,
  *     aux doubles (problem 0: gx[nmeas] gy[nmeas]; problem 1: t[nmeas]),
  *     then per instance: meas[nmeas] p0[nstate]
- *   "relaxed": the stopping rule bench.py uses on TPU (max_iterations=10,
+ *   "relaxed": the stopping rule bench.py uses on the device (max_iterations=10,
  *   thresholds 1e-3/1e-5/1e-5); default is the reference's stock
  *   parameters.
  *   "latency": instead of one pass over all instances (throughput), solve
@@ -349,7 +349,7 @@ int main(int argc, char** argv)
     prm.dogleg_debug = 0;
     if (relaxed)
     {
-        /* the stopping rule bench.py uses for the f32 TPU solves */
+        /* the stopping rule bench.py uses for the f32 device solves */
         prm.max_iterations        = 10;
         prm.Jt_x_threshold        = 1e-3;
         prm.update_threshold      = 1e-5;

@@ -1,6 +1,6 @@
 """Large-N dense Cholesky (ops/largechol): the GEMM-dominant blocked
-factorization that replaces XLA's 2.3%-of-MXU lax.linalg lowering for
-single/small-batch large matrices (VERDICT r2 ask 3; reference
+factorization used in place of XLA's lax.linalg lowering for
+single/small-batch large matrices (reference
 dogleg.c:778-804's dpotrf path at the sizes where its blocked algorithm
 matters)."""
 

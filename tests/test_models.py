@@ -377,7 +377,7 @@ def test_sparse_visibility_ba_obs_mask_padding():
 
 def test_sparse_visibility_ba_singular_V_lambda_escalation():
     """Rank-deficient BA at scale through the full sparse-W Schur solve
-    (VERDICT r3 ask 7): a block of points has NO observations and NO
+    : a block of points has NO observations and NO
     prior, so their V blocks are exactly singular and every factorization
     attempt at lambda=0 fails until the permanent escalating lambda
     (reference dogleg.c:670-676, 811-815) kicks in. The solve must (a)

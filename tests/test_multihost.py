@@ -3,7 +3,7 @@
 Spawns 2 OS processes that each own 2 virtual CPU devices and join via
 jax.distributed.initialize into one 4-device global mesh — the first actual
 exercise of the DCN code path (cross-process collectives ride Gloo on CPU;
-on a TPU pod the identical program rides DCN/ICI). Covers data-parallel
+on a real cluster the identical program rides the interconnect). Covers data-parallel
 batched solves, measurement-sharded dense products, and row-sharded
 block-sparse JtJ with the sparse Cholesky (tests/multihost_worker.py legs
 A-C), each asserted inside the workers against process-local single-device

@@ -9,8 +9,8 @@ import pytest
 from libdogleg_tpu.native import native_available
 from libdogleg_tpu.native.symbolic import (bcsr_pattern_native,
                                            jtj_schedule_native)
-from libdogleg_tpu.ops.bcsr import BCSRStructure
-from libdogleg_tpu.ops.pallas_bcsr import JtJSchedule, build_jtj_schedule
+from libdogleg_tpu.ops.bcsr import (BCSRStructure, JtJSchedule,
+                                    build_jtj_schedule)
 from libdogleg_tpu.sparsity import bcsr_from_scalar_csr
 
 pytestmark = pytest.mark.skipif(not native_available(),

@@ -1,5 +1,5 @@
 """Distributed-layer tests on a fake 8-device CPU mesh (conftest sets
-xla_force_host_platform_device_count=8) — the TPU-less multi-chip test mode
+xla_force_host_platform_device_count=8) — the hardware-less multi-device test mode
 (SURVEY.md section 4)."""
 
 import jax
@@ -265,9 +265,8 @@ def test_scaling_retention_gate():
     total work fixed, sharding the batch over the 8-virtual-device mesh
     must retain >= 0.8 of single-device throughput — a hidden
     cross-device serialization or communication in the batched path
-    fails this. Runs bench_scaling.py reduced (1->2 devices, batch 1024
-    — the full 1..8 sweep is the tracked BENCH_SCALING_r*.json) in a
-    subprocess so its platform/device setup cannot disturb this
+    fails this. Runs bench_scaling.py reduced (1->2 devices, batch 1024)
+    in a subprocess so its platform/device setup cannot disturb this
     process's backend."""
     import json
     import os
@@ -376,8 +375,8 @@ def test_sparse_visibility_ba_point_sharded():
 
 
 def test_batched_layout_minor_exact():
-    """layout="minor" (batch as the minor dim inside the loop — the
-    TPU tiling-friendly carry layout) is decision-identical to the
+    """layout="minor" (batch as the minor dim inside the loop) is
+    decision-identical to the
     default leading layout; the public interface stays batch-leading."""
     batch = 64
     meas = jax.vmap(lambda k: sp.simulate(k))(
@@ -486,8 +485,7 @@ def test_batched_layout_minor_sharded():
 
 
 def test_compacted_layout_minor_sharded():
-    """Compaction x mesh x layout="minor" — the pod deployment shape with
-    the TPU-friendly carry layout. Decisions identical to the leading
+    """Compaction x mesh x layout="minor". Decisions identical to the leading
     sharded run; results dp-sharded at the boundary."""
     from jax.sharding import PartitionSpec as P
 
@@ -562,7 +560,7 @@ def test_compacted_record_history():
 
 def test_wavefront_unroll_exact():
     """wavefront_unroll composes the attempt body k times per while_loop
-    wavefront (amortizing the carry HBM round-trip, docs/ROOFLINE.md);
+    wavefront (amortizing the carry round-trip through device memory);
     the body freezes done lanes, so results must be bit-identical in
     both batched entry points, including n_attempts."""
     from libdogleg_tpu.parallel.batched import batched_optimize_compacted

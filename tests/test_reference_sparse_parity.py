@@ -265,7 +265,7 @@ def test_sparse_outlierness_trace_parity(libref):
         wins.append((istate_active, nstate_active, Jq_win))
 
     # and the windowed BATCHED form against the same reference values:
-    # one solve for all queries, O(window) handling each (VERDICT ask 6)
+    # one solve for all queries, O(window) handling each
     from libdogleg_tpu.analysis import (
         outlierness_trace_new_features_windowed)
     wmax = max(na for _, na, _ in wins)

@@ -1,8 +1,9 @@
 """Mixed-precision iterative refinement of the GN solve (ops/newton._refine).
 
 The reference's numeric contract is C doubles end-to-end with 1e-8
-termination thresholds (reference dogleg.c:125-127); TPU-native runs are
-f32 with bf16-multiply matmuls. refine_iters is the route back: each pass
+termination thresholds (reference dogleg.c:125-127); device runs are
+f32, and on a GPU an f32 matmul at default precision runs in TF32.
+refine_iters is the route back: each pass
 solves a DOUBLE-f32 COMPENSATED residual (ops/compensated.py — a plain
 working-precision residual cannot see the error it is correcting) against
 the already-computed f32 factor. These tests quantify that it works —

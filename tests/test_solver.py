@@ -147,7 +147,7 @@ def test_all_rejects_terminates_small_trustregion():
 
 def test_nan_residuals_hit_attempt_cap_not_hang():
     """NaN trial costs would hang the reference's retry loop (NaN rho fails
-    every comparison at dogleg.c:1324-1354); the TPU solver must terminate
+    every comparison at dogleg.c:1324-1354); the solver must terminate
     via the attempt cap."""
     def products(p):
         # Clean inside |p0 - 1| <= 0.5, NaN outside; the (deliberately

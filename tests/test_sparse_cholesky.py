@@ -480,9 +480,8 @@ def _grid_pattern(W):
 def test_nd_collapses_chain_levels():
     """A 64-node chain eliminates in 63 sequential levels naturally; the
     nested-dissection ordering collapses it to O(log n) — the level
-    COUNT is the factorization's cost on TPU (one batched dispatch per
-    level), which is why the diag-coupled grid lost to one CPU core
-    (BENCH_CPU_REF_GRID_r04.json rows this round targets)."""
+    COUNT is the factorization's cost on an accelerator (one batched
+    dispatch per level)."""
     n = 64
     rows = np.concatenate([np.arange(n), np.arange(1, n)])
     cols = np.concatenate([np.arange(n), np.arange(0, n - 1)])
